@@ -3,29 +3,44 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--seed 0] [--reads 524288]
+    python3 chip_smoke.py [--seed 0] [--reads 524288] [--trace]
 
-Phases; each one passes or the script exits non-zero (nothing is caught):
+Phases; each one passes or the script exits non-zero (nothing is caught,
+nothing falls back to the CPU):
 
-1. build: compile csrc/fused_span_walk.cu with nvcc for sm_90a, from the
-   checkout's sources;
-2. kernel: fused_span_walk (CUDA) against fused_span_walk_plain on the same
-   CUDA tensors at the main path's shapes (B = 8192 reads, C = 8
-   candidates, Lmax = 92 and 96, candidates probed from a real index);
-   outputs must be bit-equal; both timed per call with CUDA events
-   (``ms``, ``plain_ms``: what a caller waits, host launch gaps included)
-   and by device time from a torch.profiler trace (``device_ms``,
-   ``plain_device_ms``);
-3. slice: the port's CLI (``nimble_tpu_torch.cli.main``) counts a FASTQ on
+1. build: compile every csrc/*.cu kernel (fused_span_walk, double_walk)
+   with nvcc for sm_90a from the checkout's sources, one nvcc per source,
+   all started together;
+2. kernel: each kernel against its plain torch version on the same CUDA
+   tensors at the main path's shapes (B = 8192 reads, C = 8 candidates,
+   Lmax = 92 and 96, candidates probed from a real index; for double_walk
+   the masks of ops.span_walk.rel_walk_masks at l_steps = Lmax - k, and a
+   case with l_steps = 0); outputs must be bit-equal; both timed per call
+   with CUDA events (``ms``, ``plain_ms``: what a caller waits, host launch
+   gaps included) and by device time from a torch.profiler trace
+   (``device_ms``, ``plain_device_ms``);
+3. fastq: the port's CLI (``nimble_tpu_torch.cli.main``) counts a FASTQ on
    the card at two library sizes, the bench workload (50 features x 500 bp,
    2^19 reads of 90 bp) and an MHC-scale library (1,000 features x
-   1,500 bp).  The kernel's launch counter must grow during each run, the
-   TSV must equal the same CLI run with ``--device cpu`` byte for byte, and
-   the TSV of a few thousand reads must equal the one written through
-   nimble_tpu.core.calls.HostAlignEngine, the NumPy oracle.
+   1,500 bp), with ``--walk fused`` and ``--walk double``.  Each run's
+   kernel launch counter must grow, both TSVs must equal the same CLI run
+   with ``--device cpu`` byte for byte, and the TSV of a few thousand reads
+   must equal the one written through nimble_tpu.core.calls.HostAlignEngine,
+   the NumPy oracle;
+4. bam: the CLI on synthetic 10x BAMs over the same two libraries (16,384
+   groups = 131,072 records; 65,536 groups = 524,288 records), ``--walk
+   fused`` and ``--walk double``, each on the card and with ``--device
+   cpu``, with 4 cores (3 consumer threads).  Each card run's kernel counter
+   must grow and the four decompressed forensic TSVs must be byte-equal.  Oracles: the
+   golden fixture tests/data/golden/forensic.bam through process_fast with
+   the torch engine on the card (both walks, both quirk modes) must equal
+   forensic_quirks.tsv / forensic_noquirks.tsv, and 4,096 records of the
+   bench BAM must give the card's CLI the bytes of bam_pipeline.process with
+   HostAlignEngine.  ``--trace`` also profiles the MHC card runs and prints
+   the card's busy share.
 
-Prints the card's name and power limit (as nvidia-smi reports them), a JSON
-line of per-kernel results, and as its last line
+Prints the card's name and power limit (as nvidia-smi reports them), JSON
+lines of the slice results and per-kernel results, and as its last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Exits non-zero, printing no result, without CUDA or outside a checkout.
 """
@@ -33,6 +48,9 @@ Exits non-zero, printing no result, without CUDA or outside a checkout.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gzip
+import io
 import json
 import os
 import subprocess
@@ -44,12 +62,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_BATCH = 8192
 KERNEL_BUCKETS = (92, 96)
 ORACLE_READS = 3000
+ORACLE_GROUPS = 512
 SIZES = (
-    # (name, features, feature length): the bench workload, then an
-    # MHC-scale library (2,000 doubled rows, about 3 Mbp)
-    ("bench", 50, 500),
-    ("mhc", 1000, 1500),
+    # (name, features, feature length, BAM groups): the bench workload, then
+    # an MHC-scale library (2,000 doubled rows, about 3 Mbp)
+    ("bench", 50, 500, 16384),
+    ("mhc", 1000, 1500, 65536),
 )
+WALK_KERNELS = {"fused": "fused_span_walk", "double": "double_walk"}
 
 
 def nvidia_smi() -> str:
@@ -62,7 +82,8 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean time per call of ``fn`` over ``iters`` back-to-back calls,
+    between two CUDA events."""
     import torch
 
     fn()
@@ -91,32 +112,91 @@ def device_ms(fn, iters: int, kernel: str = "") -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        if e.device_type.name == "CUDA" and kernel in e.key:
-            total_us += getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0.0))
+    total_us = _device_us(prof, kernel)
     if total_us <= 0:
         raise AssertionError(f"profiler saw no CUDA kernel {kernel!r}")
     return total_us / 1e3 / iters
+
+
+def _device_us(prof, name: str = "") -> float:
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and name in e.key:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+    return total
+
+
+class Counters:
+    """The kernel wrappers' launch counters, zeroed around one run."""
+
+    def __init__(self):
+        from nimble_tpu_torch.ops.double_walk import double_walk
+        from nimble_tpu_torch.ops.span_walk import fused_span_walk
+
+        self.wrappers = {"fused_span_walk": fused_span_walk,
+                         "double_walk": double_walk}
+        self.main_path = {name: 0 for name in self.wrappers}
+
+    @contextlib.contextmanager
+    def run(self, label: str, walk: str):
+        """Counts of one main-path run; the run's walk kernel must launch
+        and the other must not."""
+        import torch
+
+        torch.cuda.synchronize()
+        for w in self.wrappers.values():
+            w.launches = 0
+        got = {}
+        yield got
+        got.update({n: w.launches for n, w in self.wrappers.items()})
+        want = WALK_KERNELS[walk]
+        if got[want] <= 0 or any(v for n, v in got.items() if n != want):
+            raise AssertionError(f"{label}: launch counts {got} (walk={walk})")
+        for name, count in got.items():
+            self.main_path[name] += count
 
 
 def phase_build():
     from nimble_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load_library("fused_span_walk", rebuild=True)
+    _build.build_libraries(_build.KERNELS, rebuild=True)
     secs = time.perf_counter() - t0
-    print(f"[build] {_build.source_path('fused_span_walk').relative_to(ROOT)}"
-          f" -> {_build.library_path('fused_span_walk').name} in "
-          f"{secs:.2f} s (nvcc {_build.build_seconds['fused_span_walk']:.2f} s)")
-    for line in _build.ptxas_report["fused_span_walk"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
+    for name in _build.KERNELS:
+        print(f"[build] {_build.source_path(name).relative_to(ROOT)} -> "
+              f"{_build.library_path(name).name} (nvcc "
+              f"{_build.build_seconds[name]:.2f} s)")
+        for line in _build.ptxas_report[name].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] ptxas {name}: {line.strip()}")
+    print(f"[build] {len(_build.KERNELS)} kernels in {secs:.2f} s")
+
+
+def _check_equal(label, got, want) -> int:
+    import torch
+
+    max_err = 0
+    for name, g, w in zip(("live", "score", "mm"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label} {name}: {g.shape} {g.dtype} vs "
+                                 f"{w.shape} {w.dtype}")
+        err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
+        max_err = max(max_err, err)
+    if max_err != 0:
+        raise AssertionError(f"{label}: kernel disagrees with plain, max "
+                             f"|err| {max_err}")
+    return max_err
+
+
+def _timings(kernel, plain, kernel_name: str) -> dict:
+    return {"ms": cuda_ms(kernel, 200), "plain_ms": cuda_ms(plain, 5),
+            "device_ms": device_ms(kernel, 50, kernel_name),
+            "plain_device_ms": device_ms(plain, 3)}
 
 
 def phase_kernel(seed: int):
-    """Kernel vs plain on main-path inputs; returns per-bucket results."""
+    """Both kernels vs plain on main-path inputs; returns per-case rows."""
     import numpy as np
     import torch
 
@@ -125,9 +205,11 @@ def phase_kernel(seed: int):
     from nimble_tpu_torch.models.aligner import pack_reads
     from nimble_tpu_torch.ops.compact import probe_candidates
     from nimble_tpu_torch.ops.device_tables import tables_from_bucketed_index
+    from nimble_tpu_torch.ops.double_walk import double_walk, double_walk_plain
     from nimble_tpu_torch.ops.span_walk import (
         fused_span_walk,
         fused_span_walk_plain,
+        rel_walk_masks,
         walk_args,
     )
     from nimble_tpu_torch.workload import generate
@@ -138,42 +220,57 @@ def phase_kernel(seed: int):
     bidx = build_bucketed_index(build_index(doubled))
     t = tables_from_bucketed_index(bidx, "cuda")
     lens = np.full(KERNEL_BATCH, 90, dtype=np.int32)
-    results = []
+    rows = {"fused_span_walk": [], "double_walk": []}
     for bucket in KERNEL_BUCKETS:
         packed = torch.from_numpy(pack_reads(mat, lens, bucket)).cuda()
         cand = probe_candidates(packed, t, bucket=bucket, c_max=8)
-        args = walk_args(cand.reads, cand.read_lens, cand.anchor, cand.rows,
-                         cand.offs, cand.live0, t)
+        cargs = (cand.reads, cand.read_lens, cand.anchor, cand.rows,
+                 cand.offs, cand.live0, t)
+
+        args = walk_args(*cargs)
         got = fused_span_walk(**args, k=t.k)
         torch.cuda.synchronize()
-        want = fused_span_walk_plain(**args, k=t.k)
-        max_err = 0
-        for name, g, w in zip(("live", "score", "mm"), got, want):
-            if g.shape != w.shape or g.dtype != w.dtype:
-                raise AssertionError(f"{name}: {g.shape} {g.dtype} vs "
-                                     f"{w.shape} {w.dtype}")
-            err = int((g.to(torch.int64) - w.to(torch.int64)).abs().max())
-            max_err = max(max_err, err)
-        if max_err != 0:
-            raise AssertionError(
-                f"kernel disagrees with plain at Lmax={bucket}: max |err| "
-                f"{max_err}")
-        live_frac = float(got[0].float().mean())
-        kernel = lambda: fused_span_walk(**args, k=t.k)  # noqa: E731
-        plain = lambda: fused_span_walk_plain(**args, k=t.k)  # noqa: E731
-        row = {"Lmax": bucket, "max_abs_err": max_err,
-               "ms": cuda_ms(kernel, 200), "plain_ms": cuda_ms(plain, 5),
-               "device_ms": device_ms(kernel, 50, "fused_span_walk_kernel"),
-               "plain_device_ms": device_ms(plain, 3)}
-        print(f"[kernel] B={KERNEL_BATCH} C=8 Lmax={bucket} "
-              f"NW={args['words'].shape[2]}: bit-equal to plain (live lanes "
-              f"{live_frac:.3f}, score sum {int(got[1].sum())}); per call "
-              f"(CUDA events): kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.3f} ms; device time (profiler): kernel "
-              f"{row['device_ms']:.4f} ms, plain {row['plain_device_ms']:.3f} "
-              "ms")
-        results.append(row)
-    return results
+        row = {"Lmax": bucket, "max_abs_err": _check_equal(
+            f"fused_span_walk Lmax={bucket}", got,
+            fused_span_walk_plain(**args, k=t.k))}
+        row.update(_timings(lambda: fused_span_walk(**args, k=t.k),
+                            lambda: fused_span_walk_plain(**args, k=t.k),
+                            "fused_span_walk_kernel"))
+        print(f"[kernel] fused_span_walk B={KERNEL_BATCH} C=8 Lmax={bucket}"
+              f" NW={args['words'].shape[2]}: bit-equal to plain (live lanes "
+              f"{float(got[0].float().mean()):.3f}, score sum "
+              f"{int(got[1].sum())}); per call (CUDA events): kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms; device "
+              f"time (profiler): kernel {row['device_ms']:.4f} ms, plain "
+              f"{row['plain_device_ms']:.3f} ms")
+        rows["fused_span_walk"].append(row)
+
+        for l_steps in ((bucket - t.k, 0) if bucket == KERNEL_BUCKETS[0]
+                        else (bucket - t.k,)):
+            masks = rel_walk_masks(*cargs, l_steps=l_steps)
+            got_d = double_walk(**masks)
+            torch.cuda.synchronize()
+            err = _check_equal(f"double_walk Lmax={bucket} l_steps={l_steps}",
+                               got_d, double_walk_plain(**masks))
+            if l_steps:
+                # the main path's walk: equal to the fused walk's bits
+                _check_equal(f"double vs fused Lmax={bucket}",
+                             (got_d[0] != 0, got_d[1], got_d[2]), got)
+            T, Tl = masks["f_alive"].shape[2], masks["l_alive"].shape[2]
+            row = {"Lmax": bucket, "T": T, "Tl": Tl, "max_abs_err": err}
+            row.update(_timings(lambda: double_walk(**masks),
+                                lambda: double_walk_plain(**masks),
+                                "double_walk_kernel"))
+            mb = sum(m.numel() for m in masks.values()) / 2**20
+            print(f"[kernel] double_walk B={KERNEL_BATCH} C=8 Lmax={bucket} "
+                  f"T={T} Tl={Tl} ({mb:.1f} MiB of masks): bit-equal to "
+                  f"plain{' and to fused_span_walk' if l_steps else ''}; "
+                  f"per call (CUDA events): kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.3f} ms; device time (profiler): kernel "
+                  f"{row['device_ms']:.4f} ms, plain "
+                  f"{row['plain_device_ms']:.3f} ms")
+            rows["double_walk"].append(row)
+    return rows
 
 
 def _tsv_lines(path: str):
@@ -189,63 +286,62 @@ def _tsv_lines(path: str):
     return data, lines
 
 
-def _host_oracle_tsv(wl, out: str) -> None:
+def _library_engine_inputs(library: str):
     from nimble_tpu.config import LibraryChemistry
-    from nimble_tpu.core.calls import HostAlignEngine
     from nimble_tpu.index.build import build_index
     from nimble_tpu.library import (
         get_reference_sequence_data,
         load_reference_library,
     )
+
+    cfg, ref = load_reference_library(library, LibraryChemistry.UNSTRANDED)
+    return cfg, ref, build_index(get_reference_sequence_data(ref)[0])
+
+
+def _host_oracle_tsv(wl, out: str) -> None:
+    from nimble_tpu.core.calls import HostAlignEngine
     from nimble_tpu.pipeline import fastq_pipeline
 
-    cfg, ref = load_reference_library(wl.library, LibraryChemistry.UNSTRANDED)
-    index = build_index(get_reference_sequence_data(ref)[0])
-    fastq_pipeline.process(wl.fastqs, [HostAlignEngine(index, cfg)], [ref],
+    cfg, ref, index = _library_engine_inputs(wl.library)
+    fastq_pipeline.process(wl.inputs, [HostAlignEngine(index, cfg)], [ref],
                            [cfg], [out])
 
 
-def phase_slice(tmp: str, seed: int, n_reads: int):
-    """The port's CLI on the card at both sizes; returns launches, rows."""
-    import torch
-
+def phase_fastq(tmp: str, seed: int, n_reads: int, counters: Counters):
+    """The port's CLI on FASTQ input at both sizes; returns result rows."""
     from nimble_tpu.utils.metrics import METRICS
     from nimble_tpu_torch import cli
-    from nimble_tpu_torch.ops.span_walk import fused_span_walk
     from nimble_tpu_torch.workload import write_workload
 
     meter = METRICS.meter("fastq_align")
-    total_launches = 0
     rows = []
-    for name, n_feat, feat_len in SIZES:
+    for name, n_feat, feat_len, _groups in SIZES:
         d = os.path.join(tmp, name)
         wl = write_workload(d, n_features=n_feat, feat_len=feat_len,
                             read_len=90, n_reads=n_reads, seed=seed)
         runs = {}
-        for device in ("cuda", "cpu"):
-            out = os.path.join(d, f"{device}.tsv")
+        for device, walk in (("cuda", "fused"), ("cuda", "double"),
+                             ("cpu", "fused")):
+            out = os.path.join(d, f"{device}_{walk}.tsv")
+            argv = ["-r", wl.library, "-i", wl.inputs[0], "-o", out,
+                    "--device", device, "--walk", walk]
             items0, secs0 = meter.items, meter.seconds
-            if device == "cuda":
-                torch.cuda.synchronize()
-                fused_span_walk.launches = 0
             t0 = time.perf_counter()
-            rc = cli.main(["-r", wl.library, "-i", wl.fastqs[0], "-o", out,
-                           "--device", device])
-            wall = time.perf_counter() - t0
             if device == "cuda":
-                launches = fused_span_walk.launches
-                if launches <= 0:
-                    raise AssertionError(
-                        f"{name}: the CUDA run never launched the kernel")
-                total_launches += launches
+                with counters.run(f"fastq {name} {walk}", walk):
+                    rc = cli.main(argv)
+            else:
+                rc = cli.main(argv)
+            wall = time.perf_counter() - t0
             if rc != 0:
                 raise AssertionError(f"{name}/{device}: CLI returned {rc}")
-            runs[device] = (out, wall, meter.items - items0,
-                            meter.seconds - secs0)
-        gpu_bytes, gpu_lines = _tsv_lines(runs["cuda"][0])
-        cpu_bytes, _ = _tsv_lines(runs["cpu"][0])
-        if gpu_bytes != cpu_bytes:
-            raise AssertionError(f"{name}: cuda TSV != cpu TSV")
+            runs[(device, walk)] = (out, wall, meter.items - items0,
+                                    meter.seconds - secs0)
+        cpu_bytes, _ = _tsv_lines(runs[("cpu", "fused")][0])
+        for key in (("cuda", "fused"), ("cuda", "double")):
+            gpu_bytes, gpu_lines = _tsv_lines(runs[key][0])
+            if gpu_bytes != cpu_bytes:
+                raise AssertionError(f"{name}: {key} TSV != cpu TSV")
         if len(gpu_lines) < 2:
             raise AssertionError(f"{name}: no feature was counted")
 
@@ -254,36 +350,225 @@ def phase_slice(tmp: str, seed: int, n_reads: int):
                                n_reads=ORACLE_READS, seed=seed)
         dev_out = os.path.join(d, "oracle", "cuda.tsv")
         host_out = os.path.join(d, "oracle", "host.tsv")
-        if cli.main(["-r", small.library, "-i", small.fastqs[0], "-o",
+        if cli.main(["-r", small.library, "-i", small.inputs[0], "-o",
                      dev_out, "--device", "cuda"]) != 0:
             raise AssertionError(f"{name}: oracle-size CLI run failed")
         _host_oracle_tsv(small, host_out)
         if _tsv_lines(dev_out)[0] != _tsv_lines(host_out)[0]:
             raise AssertionError(f"{name}: cuda TSV != HostAlignEngine TSV")
 
-        for device in ("cuda", "cpu"):
-            _, wall, items, secs = runs[device]
+        for (device, walk), (_, wall, items, secs) in runs.items():
             row = {"size": name, "features": n_feat, "feature_len": feat_len,
-                   "reads": n_reads, "device": device,
+                   "reads": n_reads, "device": device, "walk": walk,
                    "cli_wall_s": wall, "cli_reads_per_s": n_reads / wall,
                    "pipeline_s": secs,
                    "pipeline_reads_per_s": items / secs if secs else 0.0}
             rows.append(row)
-            print(f"[slice] {name} ({n_feat} x {feat_len} bp, {n_reads} "
-                  f"reads) {device}: CLI {wall:.2f} s = "
+            print(f"[fastq] {name} ({n_feat} x {feat_len} bp, {n_reads} "
+                  f"reads) {device}/{walk}: CLI {wall:.2f} s = "
                   f"{row['cli_reads_per_s']:.0f} reads/s end to end; "
                   f"FASTQ loop {secs:.2f} s = "
                   f"{row['pipeline_reads_per_s']:.0f} reads/s")
-        print(f"[slice] {name}: {len(gpu_lines) - 1} callsets; cuda TSV == "
-              f"cpu TSV; {ORACLE_READS}-read cuda TSV == HostAlignEngine TSV")
-    return total_launches, rows
+        print(f"[fastq] {name}: {len(gpu_lines) - 1} callsets; cuda TSVs "
+              f"(fused, double) == cpu TSV; {ORACLE_READS}-read cuda TSV == "
+              "HostAlignEngine TSV")
+    return rows
+
+
+def _gunzip(path: str) -> bytes:
+    with gzip.open(path, "rb") as f:
+        return f.read()
+
+
+def _quiet_cli(argv):
+    """Run the CLI with its stdout and stderr captured; returns (rc, wall
+    seconds, captured stderr).  With NIMBLE_TIMING=1, process_fast's
+    threads print their split to stderr."""
+    from nimble_tpu_torch import cli
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, time.perf_counter() - t0, err.getvalue()
+
+
+def _timing_split(stderr: str) -> dict:
+    """process_fast's NIMBLE_TIMING lines -> seconds by stage."""
+    split = {}
+    for line in stderr.splitlines():
+        if line.startswith("[bam_fast wall] "):
+            label, at = line[len("[bam_fast wall] "):].split(" @ ")
+            split[label.replace(" ", "_")] = float(at.rstrip("s"))
+        elif line.startswith("[bam_fast producer] read "):
+            split["producer_read"] = float(line.split()[-1].rstrip("s"))
+        elif line.startswith("[bam_fast logger] gzip-write "):
+            split["gzip_write"] = float(line.split()[3].rstrip("s"))
+        elif line.startswith("[bam_fast consumer "):
+            words = line.split("] ", 1)[1].split()
+            for key, val in zip(words[0::2], words[1::2]):
+                k = "consumer_" + key.replace("-", "_")
+                split[k] = split.get(k, 0.0) + float(val.rstrip("s"))
+    return split
+
+
+def _golden_forensic_inputs():
+    """The library of tests/data/golden (tests/test_golden_forensic.py):
+    5 random 180 bp features from seed 12345 and their reverse
+    complements."""
+    import numpy as np
+
+    from nimble_tpu.config import AlignFilterConfig
+    from nimble_tpu.index.build import build_index
+    from nimble_tpu.library import Reference
+    from nimble_tpu.utils.dna import revcomp
+
+    rng = np.random.default_rng(12345)
+    feats = ["".join(rng.choice(list("ACGT"), size=180)) for _ in range(5)]
+    doubled = [x for s in feats for x in (s, revcomp(s))]
+    names = [n for i in range(5) for n in (f"F{i}", f"F{i}§rev")]
+    reference = Reference(
+        group_on=0, headers=["sequence_name", "sequence"],
+        columns=[names, doubled], sequence_name_idx=0, sequence_idx=1,
+    )
+    cfg = AlignFilterConfig(
+        reference_genome_size=10, score_percent=0.25, score_threshold=40,
+        num_mismatches=2, max_hits_to_report=8,
+    )
+    return reference, build_index(doubled), cfg
+
+
+def _bam_oracles(tmp: str, seed: int) -> None:
+    from nimble_tpu.core.calls import HostAlignEngine
+    from nimble_tpu.pipeline import bam_pipeline
+    from nimble_tpu.pipeline.bam_fast import process_fast
+    from nimble_tpu_torch.models.aligner import TorchAlignEngine
+    from nimble_tpu_torch.workload import write_bam_workload
+
+    golden = os.path.join(ROOT, "tests", "data", "golden")
+    reference, index, cfg = _golden_forensic_inputs()
+    for walk in WALK_KERNELS:
+        engine = TorchAlignEngine(index, cfg, device="cuda", walk=walk)
+        for quirks in (True, False):
+            out = os.path.join(tmp, f"golden_{walk}_{quirks}.tsv.gz")
+            interval = sys.getswitchinterval()
+            with contextlib.redirect_stdout(io.StringIO()):
+                process_fast([os.path.join(golden, "forensic.bam")],
+                             [engine], [reference], [cfg], [out], 2, False,
+                             parity_quirks=quirks)
+            sys.setswitchinterval(interval)
+            name = "forensic_quirks.tsv" if quirks else "forensic_noquirks.tsv"
+            with open(os.path.join(golden, name), "rb") as f:
+                if _gunzip(out) != f.read():
+                    raise AssertionError(f"golden {name} != cuda {walk}")
+    print("[bam] tests/data/golden/forensic.bam on the card (walks fused and "
+          "double, quirks on and off) == forensic_quirks.tsv / "
+          "forensic_noquirks.tsv byte for byte")
+
+    _name, n_feat, feat_len, _groups = SIZES[0]
+    wl = write_bam_workload(os.path.join(tmp, "bam_oracle"),
+                            n_features=n_feat, feat_len=feat_len,
+                            n_groups=ORACLE_GROUPS, seed=seed)
+    dev_out = os.path.join(tmp, "bam_oracle", "cuda.tsv.gz")
+    host_out = os.path.join(tmp, "bam_oracle", "host.tsv.gz")
+    rc, _, _ = _quiet_cli(["-r", wl.library, "-i", wl.inputs[0], "-o",
+                           dev_out, "--device", "cuda", "-c", "2"])
+    if rc != 0:
+        raise AssertionError(f"bam oracle-size CLI run returned {rc}")
+    cfg, ref, index = _library_engine_inputs(wl.library)
+    with contextlib.redirect_stdout(io.StringIO()):
+        bam_pipeline.process(wl.inputs, [HostAlignEngine(index, cfg)], [ref],
+                             [cfg], [host_out], 2, False)
+    got, want = _gunzip(dev_out), _gunzip(host_out)
+    n_rows = got.count(b"\n") - 1
+    if got != want or n_rows < 100:
+        raise AssertionError("bam: cuda TSV != HostAlignEngine TSV")
+    print(f"[bam] {ORACLE_GROUPS * 8} records of the bench BAM: cuda TSV == "
+          f"bam_pipeline.process with HostAlignEngine TSV ({n_rows} rows)")
+
+
+def phase_bam(tmp: str, seed: int, counters: Counters, trace: bool):
+    """The port's CLI on BAM input at both sizes; returns result rows."""
+    import torch
+
+    from nimble_tpu_torch.workload import write_bam_workload
+
+    os.environ["NIMBLE_TIMING"] = "1"
+    rows = []
+    for name, n_feat, feat_len, n_groups in SIZES:
+        t0 = time.perf_counter()
+        wl = write_bam_workload(os.path.join(tmp, f"bam_{name}"),
+                                n_features=n_feat, feat_len=feat_len,
+                                n_groups=n_groups, seed=seed)
+        n_records = 8 * n_groups
+        print(f"[bam] {name}: wrote {n_records} records ({n_groups} groups) "
+              f"in {time.perf_counter() - t0:.1f} s")
+        outs = {}
+        for device, walk in (("cuda", "fused"), ("cuda", "double"),
+                             ("cpu", "fused"), ("cpu", "double")):
+            out = os.path.join(tmp, f"bam_{name}", f"{device}_{walk}.tsv.gz")
+            argv = ["-r", wl.library, "-i", wl.inputs[0], "-o", out,
+                    "--device", device, "--walk", walk, "-c", "4"]
+            busy = None
+            if device == "cuda":
+                with counters.run(f"bam {name} {walk}", walk) as counts:
+                    if trace and name == "mhc":
+                        from torch.profiler import ProfilerActivity, profile
+
+                        with profile(activities=[ProfilerActivity.CUDA]) as p:
+                            rc, wall, err = _quiet_cli(argv)
+                            torch.cuda.synchronize()
+                        busy = _device_us(p) / 1e6 / wall
+                    else:
+                        rc, wall, err = _quiet_cli(argv)
+            else:
+                counts = {}
+                rc, wall, err = _quiet_cli(argv)
+            if rc != 0:
+                raise AssertionError(f"bam {name}/{device}/{walk}: rc {rc}")
+            outs[(device, walk)] = _gunzip(out)
+            split = _timing_split(err)
+            row = {"size": name, "features": n_feat, "feature_len": feat_len,
+                   "records": n_records, "device": device, "walk": walk,
+                   "cli_wall_s": wall, "cli_records_per_s": n_records / wall,
+                   "launches": dict(counts), "split_s": split}
+            loop = split.get("logger_joined")
+            if loop:
+                row["loop_records_per_s"] = n_records / loop
+            if busy is not None:
+                row["device_busy_share"] = busy
+            rows.append(row)
+            print(f"[bam] {name} ({n_feat} x {feat_len} bp) {device}/{walk}: "
+                  f"CLI {wall:.2f} s = {row['cli_records_per_s']:.0f} "
+                  f"records/s end to end; process_fast "
+                  f"{loop if loop else float('nan'):.2f} s = "
+                  f"{row.get('loop_records_per_s', 0.0):.0f} records/s"
+                  + (f"; card busy {busy:.3f} of the CLI wall" if busy
+                     is not None else ""))
+            print(f"[bam] {name} {device}/{walk} split: "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+        ref_bytes = outs[("cpu", "fused")]
+        for key, data in outs.items():
+            if data != ref_bytes:
+                raise AssertionError(f"bam {name}: {key} TSV != cpu TSV")
+        n_rows = ref_bytes.count(b"\n") - 1
+        if n_rows < n_groups:
+            raise AssertionError(f"bam {name}: only {n_rows} rows")
+        print(f"[bam] {name}: {n_rows} forensic rows; cuda and cpu, fused "
+              "and double: byte-equal")
+    del os.environ["NIMBLE_TIMING"]
+    _bam_oracles(tmp, seed)
+    return rows
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reads", type=int, default=1 << 19,
-                    help="reads per slice run (default 2^19)")
+                    help="reads per FASTQ run (default 2^19)")
+    ap.add_argument("--trace", action="store_true",
+                    help="profile the MHC BAM card runs (device busy share)")
     args = ap.parse_args(argv)
 
     import torch
@@ -298,29 +583,40 @@ def main(argv=None) -> int:
     smi = nvidia_smi()
     print(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
           f"torch {torch.__version__} CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
     phase_build()
     kernel = phase_kernel(args.seed)
+    counters = Counters()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches, rows = phase_slice(tmp, args.seed, args.reads)
+        fastq_rows = phase_fastq(tmp, args.seed, args.reads, counters)
+        bam_rows = phase_bam(tmp, args.seed, counters, args.trace)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     if leaked:
         raise AssertionError(f"the port's path imported jax: {leaked[:5]}")
-    main_row = kernel[0]
-    print(json.dumps({"slice": rows}))
-    print(json.dumps({"kernels": [{
-        "name": "fused_span_walk",
-        "route": "cuda",
-        "source": "nimble_tpu_torch/csrc/fused_span_walk.cu",
-        "replaces": "nimble_tpu/ops/pallas_fused.py:130",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kernel),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "device_ms": main_row["device_ms"],
-        "plain_device_ms": main_row["plain_device_ms"],
-        "shape": f"B={KERNEL_BATCH} C=8 Lmax={main_row['Lmax']}",
-    }]}))
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"fastq": fastq_rows}))
+    print(json.dumps({"bam": bam_rows}))
+    replaces = {"fused_span_walk": "nimble_tpu/ops/pallas_fused.py:130",
+                "double_walk": "nimble_tpu/ops/pallas_walk.py:75"}
+    lines = []
+    for name, cases in kernel.items():
+        main_row = cases[0]
+        shape = f"B={KERNEL_BATCH} C=8 Lmax={main_row['Lmax']}"
+        if "T" in main_row:
+            shape += f" T={main_row['T']} Tl={main_row['Tl']}"
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": f"nimble_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces[name],
+            "launches": counters.main_path[name],
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "device_ms": main_row["device_ms"],
+            "plain_device_ms": main_row["plain_device_ms"],
+            "shape": shape,
+        })
+    print(json.dumps({"kernels": lines}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

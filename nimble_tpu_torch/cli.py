@@ -1,19 +1,24 @@
-"""Command line interface of the torch port: FASTQ counting.
+"""Command line interface of the torch port: FASTQ counting and BAM input.
 
-The FASTQ surface of ``nimble_tpu.cli`` (the reference CLI's flags):
+The surface of ``nimble_tpu.cli`` (the reference CLI's flags):
 
   nimble-tpu-torch -r lib.json [-r lib2.json ...] -i reads.fastq[.gz]
                    [-i mates.fastq] -o out.tsv [-o out2.tsv ...]
                    [-c CORES] [-f STRAND_FILTER] [-t LEN:STRICT,...]
-                   [--device cuda|cpu]
+                   [--device cuda|cpu] [--walk fused|double]
+  nimble-tpu-torch -r lib.json -i reads.bam -o out.tsv.gz
+                   [-c CORES] [-p] [--no-parity-quirks] [...]
 
-``--engine mesh`` (multi-device) is not ported yet and exits with a message.
-
-Each library runs through ``pipeline.fastq_pipeline.process`` on its own,
-one after another, as the reference CLI does; every library gets a
-``TorchAlignEngine`` on ``--device`` (default ``cuda``).  Asking for CUDA on
-a machine without it is an error, never a silent CPU run.  BAM input is not
-ported yet and exits with a message.
+FASTQ input: each library runs through ``pipeline.fastq_pipeline.process``
+on its own, one after another, as the reference CLI does.  BAM input (10x
+scRNA-seq, written as the gzipped forensic TSV) runs through
+``pipeline.bam_fast.process_fast`` with ``CORES - 1`` consumer threads;
+it needs the native host library and takes one library.  Every library gets
+a ``TorchAlignEngine`` on ``--device`` (default ``cuda``) with the walk
+kernel ``--walk`` (the reference's ``NIMBLE_PALLAS=fused|walk``).  Asking
+for CUDA on a machine without it is an error, never a silent CPU run.
+``--engine mesh`` (multi-device) is not ported yet and exits with a
+message.
 """
 
 from __future__ import annotations
@@ -24,11 +29,13 @@ from typing import List
 
 import torch
 
+from nimble_tpu import native
 from nimble_tpu.config import LibraryChemistry
 from nimble_tpu.index.build import build_index
 from nimble_tpu.library import get_reference_sequence_data, load_reference_library
 from nimble_tpu.pipeline import fastq_pipeline
 from nimble_tpu_torch.models.aligner import TorchAlignEngine
+from nimble_tpu_torch.ops.compact import WALKS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -44,20 +51,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--output", action="append", required=True,
                    help="Output TSV file name(s)")
     p.add_argument("-i", "--input", action="append", required=True,
-                   help=".fastq.gz/.fastq file(s); a second file holds mates")
+                   help=".fastq.gz/.fastq file(s), or a single .bam file")
     p.add_argument("-c", "--cores", type=int, default=1, dest="num_cores",
-                   help="Number of cores to use for the index build")
+                   help="Number of cores to use during alignment")
     p.add_argument("-f", "--strand_filter", default="unstranded",
                    help='One of "unstranded" (default), "fiveprime", '
                         '"threeprime", "none"')
     p.add_argument("-t", "--trim", default=None,
                    help="TARGET_LENGTH:STRICTNESS per library, comma-separated")
+    p.add_argument("-p", "--force_bam_paired", action="store_true",
+                   help="Skip alignment of unpaired reads in a .bam")
+    p.add_argument("--no-parity-quirks", action="store_true",
+                   help="Disable reproduction of reference output quirks "
+                        "(e.g. dropping the final UMI group of a BAM)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="torch device of the alignment engine (default cuda)")
+    p.add_argument("--walk", choices=WALKS, default="fused",
+                   help="walk kernel: fused span walk (default) or the "
+                        "double walk over precomputed masks")
     p.add_argument("--engine", choices=("device", "mesh"), default="device",
                    help="single-device engine (default); mesh is not yet "
                         "ported")
     return p
+
+
+def _run_bam(args, engines, references, configs) -> None:
+    """``process_fast`` with the torch engine; restores the interpreter's
+    thread switch interval, which ``process_fast`` lowers and leaves."""
+    from nimble_tpu.pipeline.bam_fast import process_fast
+
+    interval = sys.getswitchinterval()
+    try:
+        process_fast(args.input, engines, references, configs, args.output,
+                     args.num_cores, args.force_bam_paired,
+                     parity_quirks=not args.no_parity_quirks)
+    finally:
+        sys.setswitchinterval(interval)
 
 
 def main(argv: List[str] | None = None) -> int:
@@ -88,15 +117,22 @@ def main(argv: List[str] | None = None) -> int:
             )
 
     first = args.input[0].lower()
-    if first.endswith(".bam"):
-        raise SystemExit(
-            "BAM input is not yet ported to nimble_tpu_torch; use "
-            "`python -m nimble_tpu.cli` for BAM files")
-    if not (first.endswith(".fastq") or first.endswith(".fastq.gz")):
+    is_bam = first.endswith(".bam")
+    if not (is_bam or first.endswith(".fastq") or first.endswith(".fastq.gz")):
         ext = first.rsplit(".", 1)[-1] if "." in first else ""
         raise SystemExit(f"Unsupported file format: {ext}")
+    if is_bam and len(args.reference) > 1:
+        raise SystemExit(
+            "BAM input with more than one library is not yet ported to "
+            "nimble_tpu_torch; run one library per call")
+    if is_bam and not native.available():
+        raise SystemExit(
+            "BAM input needs the native host library (native/nimble_host.cpp, "
+            "built with g++ at first use), which is not available; the "
+            "slow BAM pipeline is not yet ported to nimble_tpu_torch")
 
-    for i, (path, out) in enumerate(zip(args.reference, args.output)):
+    engines, references, configs = [], [], []
+    for i, path in enumerate(args.reference):
         print(f"Loading and preprocessing reference data for {path}")
         aligner_config, reference = load_reference_library(path, strand_filter)
         if i < len(trim_pairs):
@@ -109,11 +145,21 @@ def main(argv: List[str] | None = None) -> int:
             )
         seqs, _names = get_reference_sequence_data(reference)
         index = build_index(seqs, num_threads=args.num_cores)
-        engine = TorchAlignEngine(index, aligner_config, device=args.device)
-        print("Loading read sequences and aligning")
+        engines.append(TorchAlignEngine(index, aligner_config,
+                                        device=args.device, walk=args.walk))
+        references.append(reference)
+        configs.append(aligner_config)
+
+    print("Loading read sequences and aligning")
+    if is_bam:
+        print("Processing as BAM file")
+        _run_bam(args, engines, references, configs)
+    else:
         print("Processing as FASTQ file")
-        fastq_pipeline.process(
-            args.input, [engine], [reference], [aligner_config], [out])
+        for engine, reference, cfg, out in zip(engines, references, configs,
+                                               args.output):
+            fastq_pipeline.process(args.input, [engine], [reference], [cfg],
+                                   [out])
 
     print("Alignment successful, terminating.")
     return 0

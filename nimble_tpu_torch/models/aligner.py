@@ -1,33 +1,61 @@
-"""TorchAlignEngine: the compact engine interface on a torch device.
+"""TorchAlignEngine: the compact and full engine interfaces on a torch device.
 
-Counterpart of ``nimble_tpu.models.aligner.DeviceAlignEngine``'s compact
-interface — the one ``core.fast_count.FastCounter`` and
-``pipeline.fastq_pipeline.process`` drive by duck typing:
-``compact_dispatch`` / ``compact_collect`` / ``align_raw_compact_from_matrix``
-plus the combo decoders.  Reads are grouped by length bucket, packed 2-bit
-on the host, uploaded once per bucket and run through
-``ops.compact.probe_walk_filter`` in ``launch_batch``-read launches.  At
-collect, the host applies the exact f64 entropy gate; reads the device
-cannot bound (postings overflow, fingerprint collision, longer than the
-largest bucket) come back flagged ``needs_host`` for the exact host rescue.
+Counterpart of ``nimble_tpu.models.aligner.DeviceAlignEngine``'s two
+columnar interfaces, which the shared host pipelines drive by duck typing:
+
+- compact (``core.fast_count.FastCounter``, ``pipeline.fastq_pipeline``):
+  ``compact_dispatch`` / ``compact_collect`` /
+  ``align_raw_compact_from_matrix`` plus the combo decoders.  Reads are
+  grouped by length bucket, packed 2-bit on the host, uploaded once per
+  bucket and run through ``ops.compact.probe_walk_filter`` in
+  ``launch_batch``-read launches.  At collect, the host applies the exact
+  f64 entropy gate; reads the device cannot bound (postings overflow,
+  fingerprint collision, longer than the largest bucket) come back flagged
+  ``needs_host`` for the exact host rescue.
+- full (``pipeline.bam_fast.process_fast``, the BAM forensic path):
+  ``full_dispatch`` / ``full_collect``.  Each bucket's packed rows are
+  deduped (:func:`dedupe_packed_rows`) before the upload and run through
+  ``ops.full.probe_walk_full``; collect applies every gate exactly on the
+  host, rescues what the device cannot bound, and scatters the results back
+  over the duplicates.
+
+``process_fast`` calls dispatch and collect from several host threads: the
+kernel wrappers launch on the calling thread's current stream and count
+launches under a lock, and collect first waits for the stream that its
+dispatch launched on.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence
 
 import numpy as np
 import torch
 
-from nimble_tpu.config import MIN_ENTROPY_SCORE, MIN_READ_LENGTH, AlignFilterConfig
+from nimble_tpu.config import (
+    FILTER_REASON_CODE,
+    MIN_ENTROPY_SCORE,
+    MIN_READ_LENGTH,
+    AlignFilterConfig,
+    FilterReason,
+)
+from nimble_tpu.core.fast_count import _group_rows_exact
+from nimble_tpu.core.filters import pseudoalign
 from nimble_tpu.index.build import KmerIndex
 from nimble_tpu.ops.device_index import build_bucketed_index
-from nimble_tpu_torch.ops.compact import probe_walk_filter, unpack_compact
+from nimble_tpu_torch.ops.compact import (
+    WALKS,
+    check_c_max,
+    probe_walk_filter,
+    unpack_compact,
+)
 from nimble_tpu_torch.ops.device_tables import (
     FilterScalars,
     s_min_table,
     tables_from_bucketed_index,
 )
+from nimble_tpu_torch.ops.full import probe_walk_full, unpack_full_packed
 
 # read-length buckets: one launch shape per bucket (the JAX engine's set)
 DEFAULT_BUCKETS = (64, 92, 96, 128, 160, 192, 256, 384, 512, 768, 1024)
@@ -89,8 +117,35 @@ def pack_reads(mat: np.ndarray, lens: np.ndarray, bucket: int) -> np.ndarray:
     return buf
 
 
+def dedupe_packed_rows(buf_all: np.ndarray):
+    """Group identical packed read rows; returns (first, inv).
+
+    ``buf_all[first]`` are the distinct rows and ``buf_all[first][inv] ==
+    buf_all`` row for row: the full result is a pure function of the packed
+    row (trim-zeroed codes + length bytes), so duplicates upload and align
+    once.  The grouping is ``core.fast_count._group_rows_exact`` over the
+    rows viewed as int64 words, as ``nimble_tpu.models.aligner`` does, so
+    ``first`` and ``inv`` are the JAX engine's.
+    """
+    m, w = buf_all.shape
+    pad_w = (w + 7) & ~7
+    if pad_w != w:
+        padded = np.zeros((m, pad_w), dtype=np.uint8)
+        padded[:, :w] = buf_all
+    else:
+        padded = np.ascontiguousarray(buf_all)
+    gid, reps = _group_rows_exact(padded.view(np.int64).reshape(m, pad_w // 8))
+    return reps, gid
+
+
 class TorchAlignEngine:
-    """Batched torch/CUDA alignment engine with host-exact filtering."""
+    """Batched torch/CUDA alignment engine with host-exact filtering.
+
+    ``walk`` selects the walk kernel of both device passes: ``"fused"``
+    (default; the JAX engine's ``use_pallas_walk="fused"``) or ``"double"``
+    (relative-coordinate masks + the double-walk kernel;
+    ``use_pallas_walk=True``).  Results are identical.
+    """
 
     EQ_ROW_PAD = np.int64(2**62)
 
@@ -103,15 +158,20 @@ class TorchAlignEngine:
         c_max: int = 8,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         launch_batch: int = 8192,
+        walk: str = "fused",
     ):
         if int(launch_batch) < 1:
             raise ValueError("launch_batch must be positive")
+        if walk not in WALKS:
+            raise ValueError(f"walk={walk!r} is not one of {WALKS}")
+        check_c_max(int(c_max))
         self.device = torch.device(device)
         self.index = index
         self.config = config
         self.c_max = int(c_max)
         self.buckets = tuple(sorted(buckets))
         self.launch_batch = int(launch_batch)
+        self.walk = walk
         self.bidx = build_bucketed_index(index)
         self.tables = tables_from_bucketed_index(self.bidx, self.device)
         self.scalars = FilterScalars.from_config(config)
@@ -129,17 +189,34 @@ class TorchAlignEngine:
             self._s_min_dev[key] = t
         return t
 
-    def _launch(self, buf: np.ndarray, bucket: int) -> torch.Tensor:
-        """Upload one bucket's packed rows and run the compact pass in
-        launch_batch slices; returns the (m, 2) int32 device result."""
+    def _stream(self):
+        """The dispatching thread's CUDA stream (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.current_stream(self.device)
+
+    @staticmethod
+    def _wait(state) -> None:
+        """Wait for a dispatch's launches: collect may run on another host
+        thread, whose current stream need not be the dispatching one."""
+        if state["stream"] is not None:
+            state["stream"].synchronize()
+
+    def _launch(self, buf: np.ndarray, bucket: int, *,
+                full: bool = False) -> torch.Tensor:
+        """Upload one bucket's packed rows and run the compact pass (or, with
+        ``full``, the full-output pass) in launch_batch slices; returns the
+        (m, 2) (or (m, 3)) int32 device result."""
         dev_in = torch.from_numpy(buf).to(self.device)
-        s_min = self._s_min(bucket)
-        outs = [
-            probe_walk_filter(
-                dev_in[i : i + self.launch_batch], self.tables, self.scalars,
-                s_min, bucket=bucket, c_max=self.c_max)
-            for i in range(0, dev_in.shape[0], self.launch_batch)
-        ]
+        kw = dict(t=self.tables, bucket=bucket, c_max=self.c_max,
+                  walk=self.walk)
+        if full:
+            run = functools.partial(probe_walk_full, **kw)
+        else:
+            run = functools.partial(probe_walk_filter, scalars=self.scalars,
+                                    s_min=self._s_min(bucket), **kw)
+        outs = [run(dev_in[i : i + self.launch_batch])
+                for i in range(0, dev_in.shape[0], self.launch_batch)]
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
     def compact_dispatch(self, mat: np.ndarray, lens: np.ndarray):
@@ -169,7 +246,8 @@ class TorchAlignEngine:
                 launches.append(
                     (bucket, sel, len(blens), self._launch(buf, bucket), buf,
                      blens))
-        return {"n": n, "needs_host": needs_host, "launches": launches}
+        return {"n": n, "needs_host": needs_host, "launches": launches,
+                "stream": self._stream()}
 
     def compact_collect(self, state, defer_unresolved: bool = False):
         """Fetch the results and assemble the flat result dict (see
@@ -177,6 +255,7 @@ class TorchAlignEngine:
         accepted for interface compatibility; every read resolves in its
         first launch."""
         n = state["n"]
+        self._wait(state)
         astart = np.zeros(n, dtype=np.int64)
         mask = np.zeros(n, dtype=np.int32)
         passed = np.zeros(n, dtype=bool)
@@ -203,6 +282,151 @@ class TorchAlignEngine:
         bool, needs_host (N,) bool.
         """
         return self.compact_collect(self.compact_dispatch(mat, lens))
+
+    # --- full-output interface (BAM forensic path) -------------------------
+
+    def full_dispatch(self, mat: np.ndarray, lens: np.ndarray,
+                      active: np.ndarray):
+        """Pack, dedupe, upload and launch one batch of the BAM path;
+        returns an opaque state for :meth:`full_collect`.
+
+        ``active`` marks the reads to align (False: skipped records, which
+        get no result).  ``mat`` may hold codes past each (trimmed) length:
+        they are zeroed before packing, as the packed entropy gate needs.
+        Reads longer than the largest bucket go to host rescue at collect.
+        """
+        n = mat.shape[0]
+        lens = np.asarray(lens, dtype=np.int32)
+        act = np.asarray(active, dtype=bool)
+        host_rescue = act & (lens > self.buckets[-1])
+        eligible = act & (lens >= MIN_READ_LENGTH) & ~host_rescue
+        launches = []
+        if eligible.any():
+            mat_z = np.where(
+                np.arange(mat.shape[1], dtype=np.int32)[None, :]
+                < lens[:, None], mat, 0).astype(np.int8, copy=False)
+            bucket_arr = np.asarray(self.buckets)
+            bucket_idx = np.searchsorted(bucket_arr, lens)
+            for bi in np.unique(bucket_idx[eligible]):
+                bucket = int(bucket_arr[bi])
+                sel = np.flatnonzero(eligible & (bucket_idx == bi))
+                buf_all = pack_reads(mat_z[sel], lens[sel], bucket)
+                first, inv = dedupe_packed_rows(buf_all)
+                buf = buf_all[first]
+                launches.append((sel, len(first),
+                                 self._launch(buf, bucket, full=True), buf,
+                                 bucket, inv))
+        return {"n": n, "mat": mat, "lens": lens, "active": act,
+                "host_rescue": host_rescue, "launches": launches,
+                "stream": self._stream()}
+
+    def full_collect(self, state):
+        """Fetch the results and apply the exact host gates.
+
+        Returns dict arrays over the N reads: ``reason`` int16 (index into
+        ``FILTER_REASONS`` for a filtered read, -1 passed, -2 inactive),
+        ``norm`` f64 and ``score`` int32 (the reported scores), ``eq_key``
+        int64 (>= 0 a device combo ``astart << c_max | mask``, <= -2 a key
+        of ``rescued``, -1 no eq class) and ``rescued`` (id -> eq list).
+        The gates run in ``pseudoalign``'s order; rescue ids go to the
+        host-rescue rows first, then to each launch's overflow rows, as in
+        ``DeviceAlignEngine.full_collect``.
+        """
+        n = state["n"]
+        self._wait(state)
+        mat, lens, act = state["mat"], state["lens"], state["active"]
+        reason = np.full(n, -2, dtype=np.int16)
+        norm = np.zeros(n, dtype=np.float64)
+        score = np.zeros(n, dtype=np.int32)
+        eq_key = np.full(n, -1, dtype=np.int64)
+        rescued: dict = {}
+        cfg = self.config
+        code = FILTER_REASON_CODE
+
+        reason[act & (lens < MIN_READ_LENGTH)] = code[FilterReason.SHORT_READ]
+        next_rescue = -2
+
+        def host_align(i):
+            nonlocal next_rescue
+            alignment, filt = pseudoalign(mat[i, : lens[i]], self.index, cfg,
+                                          MIN_READ_LENGTH)
+            if alignment is not None:
+                eq, nrm, sc = alignment
+                rescued[next_rescue] = list(eq)
+                eq_key[i] = next_rescue
+                next_rescue -= 1
+                reason[i] = -1
+                norm[i] = nrm
+                score[i] = sc
+            else:
+                reason[i] = code[filt[0]]
+                norm[i] = filt[1]
+                score[i] = filt[2]
+
+        for i in np.flatnonzero(state["host_rescue"]):
+            host_align(i)
+
+        for sel, m, out_dev, buf, bucket, inv in state["launches"]:
+            out = unpack_full_packed(out_dev.cpu().numpy())
+            nb = (bucket + 3) // 4
+            # distinct-row lengths live in the packed rows themselves
+            sub_lens = (buf[:, nb].astype(np.int32)
+                        | (buf[:, nb + 1].astype(np.int32) << 8))
+            low_ent = ~entropy_pass_packed(buf, m, sub_lens, nb)
+            ha = out["has_anchor"]
+            ov = out["overflow"] & ~low_ent
+            sc = out["score"]
+            mm = out["mismatches"]
+            nrm = sc / sub_lens  # f64, the reference's normalized score
+            keys = (out["astart"] << self.c_max) | out["mask"]
+            counts = self._decode_counts(keys, ha)
+
+            r = np.full(m, -1, dtype=np.int16)
+            nr = np.zeros(m, dtype=np.float64)
+            s_out = np.zeros(m, dtype=np.int32)
+            k_out = np.full(m, -1, dtype=np.int64)
+
+            r[low_ent] = code[FilterReason.HIGH_ENTROPY]
+            live = ~low_ent & ~ov
+            r[live & ~ha] = code[FilterReason.NO_MATCH]
+            cand = live & ha
+
+            # (fails, reason, reports its scores), in pseudoalign's order
+            gates = []
+            if cfg.discard_nonzero_mismatch:
+                gates.append((mm != 0, FilterReason.DISCARDED_NONZERO_MISMATCH,
+                              False))
+            gates.append((~((sc >= cfg.score_threshold)
+                            & (nrm >= cfg.score_percent)),
+                          FilterReason.SCORE_BELOW_THRESHOLD, True))
+            if cfg.discard_multiple_matches:
+                gates.append((counts > 1,
+                              FilterReason.DISCARDED_MULTIPLE_MATCH, True))
+            gates.append((mm > cfg.num_mismatches,
+                          FilterReason.ABOVE_MISMATCH_THRESHOLD, True))
+            for fails, why, report in gates:
+                hit = cand & fails
+                r[hit] = code[why]
+                if report:
+                    nr[hit] = nrm[hit]
+                    s_out[hit] = sc[hit]
+                cand &= ~hit
+            nr[cand] = nrm[cand]
+            s_out[cand] = sc[cand]
+            k_out[cand] = keys[cand]
+
+            # scatter the per-distinct results over the duplicates
+            reason[sel] = r[inv]
+            norm[sel] = nr[inv]
+            score[sel] = s_out[inv]
+            eq_key[sel] = k_out[inv]
+            # postings overflow / fingerprint collision: exact host rescue,
+            # one rescue id per original row
+            for j in np.flatnonzero(ov[inv]):
+                host_align(int(sel[j]))
+
+        return {"reason": reason, "norm": norm, "score": score,
+                "eq_key": eq_key, "rescued": rescued}
 
     # --- combo decoding (host) --------------------------------------------
 

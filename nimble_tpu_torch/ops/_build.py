@@ -21,13 +21,15 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
+KERNELS = ("fused_span_walk", "double_walk")  # the sources under csrc/
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _libs and _name_locks
+_name_locks: dict = {}    # one lock per kernel: two kernels build at once
 _libs: dict = {}
 # seconds spent in nvcc per kernel in this process (0.0 = loaded from an
 # earlier build); chip_smoke.py reports it
@@ -63,6 +65,8 @@ def load_library(name: str, *, rebuild: bool = False) -> ctypes.CDLL:
     """Build (if needed, or always with ``rebuild``) and load
     ``csrc/<name>.cu``; the loaded library is cached per process."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None and not rebuild:
             return lib
@@ -94,3 +98,14 @@ def load_library(name: str, *, rebuild: bool = False) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(so))
         _libs[name] = lib
         return lib
+
+
+def build_libraries(names, *, rebuild: bool = False) -> dict:
+    """:func:`load_library` for every name at once: one nvcc per source,
+    all started together.  Returns {name: loaded library}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {n: pool.submit(load_library, n, rebuild=rebuild)
+                   for n in names}
+        return {n: f.result() for n, f in futures.items()}

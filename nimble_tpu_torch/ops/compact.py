@@ -1,7 +1,8 @@
 """The compact device pass: packed reads -> probe -> walk -> filters -> (B, 2).
 
 Counterpart: ``engine_fast._probe_walk_filter_impl`` (the candidate-major
-branch that ``use_pallas="fused"`` runs), the packed-row unpack of
+branch that ``use_pallas="fused"`` and ``use_pallas=True`` run, selected
+here by ``walk="fused"`` / ``walk="double"``), the packed-row unpack of
 ``probe_walk_filter_packed_chunked``, and ``unpack_compact`` with its
 ``COMPACT_*`` bits.  The result layout is the JAX engine's: column 0 is the
 anchor's postings start, column 1 the live-lane mask | passed << 16 |
@@ -18,8 +19,13 @@ import torch
 
 from nimble_tpu_torch.ops.device_tables import FilterScalars, IndexTables
 from nimble_tpu_torch.ops.probe import probe_bucketed
-from nimble_tpu_torch.ops.span_walk import fused_span_walk, walk_args
+from nimble_tpu_torch.ops.span_walk import (
+    fused_span_walk,
+    span_walk_rel,
+    walk_args,
+)
 
+WALKS = ("fused", "double")
 COMPACT_MASK_BITS = 16
 COMPACT_PASSED_BIT = 1 << 16
 COMPACT_NEEDS_HOST_BIT = 1 << 17
@@ -54,6 +60,12 @@ class Candidates:
     live0: torch.Tensor        # (B, c_max) bool real candidate lanes
 
 
+def live_mask(live: torch.Tensor) -> torch.Tensor:
+    """(B, C) bool live lanes -> (B,) int64 bit mask (lane c at bit c)."""
+    c_idx = torch.arange(live.shape[1], device=live.device)
+    return torch.where(live, 1 << c_idx, 0).sum(dim=1)
+
+
 def probe_candidates(packed: torch.Tensor, t: IndexTables, *, bucket: int,
                      c_max: int) -> Candidates:
     """Unpack, probe, and gather up to ``c_max`` postings per anchor."""
@@ -75,25 +87,55 @@ def probe_candidates(packed: torch.Tensor, t: IndexTables, *, bucket: int,
     )
 
 
+def check_c_max(c_max: int) -> None:
+    if not 1 <= c_max <= COMPACT_MASK_BITS:
+        raise ValueError(f"c_max={c_max} must be in [1, {COMPACT_MASK_BITS}]: "
+                         "the results pack the live lanes in 16 bits")
+
+
+def walk_candidates(cand: Candidates, t: IndexTables, *, bucket: int,
+                    walk: str):
+    """Span walk of the probed candidates; returns (live (B, c_max) bool,
+    score, mm (B,) int32) with ``score`` counting the anchor k-mer and both
+    zero for reads without an anchor.
+
+    ``walk="fused"`` is the fused span-walk kernel (``use_pallas="fused"``
+    in the JAX engine); ``walk="double"`` builds the relative-coordinate
+    masks and runs the double-walk kernel (``use_pallas=True``), with
+    ``l_steps = min(p_limit - 1, bucket - k)`` as the JAX engine sets it.
+    Both give the same bits.
+    """
+    if walk not in WALKS:
+        raise ValueError(f"walk={walk!r} is not one of {WALKS}")
+    args = (cand.reads, cand.read_lens, cand.anchor, cand.rows, cand.offs,
+            cand.live0, t)
+    if walk == "fused":
+        live, walk_score, walk_mm = fused_span_walk(**walk_args(*args),
+                                                    k=t.k)
+    else:
+        p_limit = bucket - t.k + 1
+        live, walk_score, walk_mm = span_walk_rel(
+            *args, l_steps=min(p_limit - 1, bucket - t.k))
+    score = torch.where(cand.has_anchor, walk_score + t.k, 0)
+    mm = torch.where(cand.has_anchor, walk_mm, 0)
+    return live, score, mm
+
+
 def probe_walk_filter(packed: torch.Tensor, t: IndexTables,
                       scalars: FilterScalars, s_min: torch.Tensor, *,
-                      bucket: int, c_max: int) -> torch.Tensor:
+                      bucket: int, c_max: int,
+                      walk: str = "fused") -> torch.Tensor:
     """One launch of packed reads -> (B, 2) int32 compact results.
 
     ``s_min`` is the device copy of ``device_tables.s_min_table(...,
     bucket)``; ``c_max`` candidate lanes (<= 16) are walked per read and
-    reads whose anchor has more postings go to host rescue.
+    reads whose anchor has more postings go to host rescue.  ``walk``
+    selects the walk kernel (see :func:`walk_candidates`).
     """
-    if not 1 <= c_max <= COMPACT_MASK_BITS:
-        raise ValueError(f"c_max={c_max} must be in [1, {COMPACT_MASK_BITS}]: "
-                         "the compact result packs the live lanes in 16 bits")
+    check_c_max(c_max)
     cand = probe_candidates(packed, t, bucket=bucket, c_max=c_max)
     has_anchor, rows = cand.has_anchor, cand.rows
-    live, walk_score, walk_mm = fused_span_walk(
-        **walk_args(cand.reads, cand.read_lens, cand.anchor, rows, cand.offs,
-                    cand.live0, t), k=t.k)
-    score = torch.where(has_anchor, walk_score + t.k, 0)
-    mm = torch.where(has_anchor, walk_mm, 0)
+    live, score, mm = walk_candidates(cand, t, bucket=bucket, walk=walk)
 
     # distinct live rows: a live lane counts unless an earlier live lane
     # holds the same row
@@ -102,7 +144,7 @@ def probe_walk_filter(packed: torch.Tensor, t: IndexTables,
     dup = ((rows[:, :, None] == rows[:, None, :])
            & live[:, :, None] & live[:, None, :] & earlier).any(dim=2)
     distinct = (live & ~dup).sum(dim=1)
-    mask = torch.where(live, 1 << c_idx, 0).sum(dim=1)
+    mask = live_mask(live)
 
     read_lens = cand.read_lens
     s_min_len = s_min[read_lens.clamp(0, s_min.shape[0] - 1).to(torch.int64)]

@@ -1,10 +1,13 @@
-"""Candidate span walk: reference-word gather + the fused span-walk kernel.
+"""Candidate span walk: reference-word gather + the two walk kernels.
 
 Counterparts: ``engine_fast._gather_span_words`` and
 ``_span_walk_abs_fused`` (the torch glue here), and
 ``ops/pallas_fused.pallas_fused_span_walk`` (the kernel:
 ``csrc/fused_span_walk.cu``, wrapped by :func:`fused_span_walk`, with
-:func:`fused_span_walk_plain` as its plain torch version).
+:func:`fused_span_walk_plain` as its plain torch version).  The
+relative-coordinate form ``engine_fast._span_walk_rel`` builds its masks
+here (:func:`rel_walk_masks`) and runs them through
+``ops.double_walk.double_walk`` (:func:`span_walk_rel`).
 
 The walk works in READ-absolute coordinates: candidate c of read b compares
 reference base ``base_off[b, c] + p`` of its row with read base p.  Forward
@@ -25,6 +28,7 @@ import torch
 
 from nimble_tpu_torch.ops import _build
 from nimble_tpu_torch.ops.device_tables import IndexTables
+from nimble_tpu_torch.ops.double_walk import double_walk
 
 M32 = 0xFFFFFFFF
 MAX_CANDIDATES = 32  # candidate lanes of one read share one warp
@@ -194,6 +198,79 @@ def fused_span_walk(reads, read_lens, anchor, base_off, r_len, live0, words,
 
 
 fused_span_walk.launches = 0
+
+
+def unpack_span(words: torch.Tensor, phase: torch.Tensor, L: int):
+    """(M, NW) word windows + (M,) phases -> (M, L) int32 2-bit codes
+    (``engine_fast._unpack_span``)."""
+    j = phase.to(torch.int64)[:, None] + torch.arange(L, device=words.device)
+    acc = words.gather(1, j >> 4)
+    return (acc >> ((j & 15) * 2).to(torch.int32)) & 3
+
+
+def rel_walk_masks(reads, read_lens, anchor, rows, offs, live0,
+                   t: IndexTables, *, l_steps: int) -> dict:
+    """Arguments of :func:`double_walk` for (B, C) candidates: the
+    relative-coordinate glue of ``engine_fast._span_walk_rel`` (the
+    ``use_pallas=True`` branch).
+
+    The read span around the anchor and each candidate's reference span
+    cover ``W = l_steps + k + T`` bases (T = Lmax - k): the forward masks
+    take columns ``l_steps + k ..``, the left masks the first ``l_steps``
+    columns reversed (step j = 1..l_steps compares read position
+    ``anchor - j``).  With ``l_steps == 0`` the left walk is one step of
+    all-zero masks.
+    """
+    B, Lmax = reads.shape
+    C = rows.shape[1]
+    k = t.k
+    T = Lmax - k
+    W = l_steps + k + T
+    dev = reads.device
+    anchor = anchor.to(torch.int64)
+    offs = offs.to(torch.int64)
+
+    reads_padded = torch.nn.functional.pad(reads.to(torch.int32), (l_steps, T))
+    x_w = torch.arange(W, device=dev)
+    read_span = reads_padded.gather(1, anchor[:, None] + x_w)     # (B, W)
+
+    starts = t.row_starts[rows].to(torch.int64) + offs - l_steps + t.ref_pad
+    words, phase = gather_span_words(
+        t.ref_codes_packed, starts.reshape(-1), (W + 15) // 16 + 1)
+    ref_span = unpack_span(words, phase, W).reshape(B, C, W)
+    match_full = ref_span == read_span[:, None, :]              # (B, C, W)
+
+    r_len = t.row_lengths[rows].to(torch.int64)
+    t_idx = torch.arange(T, device=dev)
+    f_alive = (offs[:, :, None] + k + t_idx) < r_len[:, :, None]
+    f_match = match_full[:, :, l_steps + k:] & f_alive
+    f_active = (anchor[:, None] + k + t_idx) < read_lens[:, None]
+    if l_steps > 0:
+        j_idx = torch.arange(1, l_steps + 1, device=dev)
+        l_alive = (offs[:, :, None] - j_idx) >= 0
+        l_match = match_full[:, :, :l_steps].flip(2) & l_alive
+        l_active = (anchor[:, None] - j_idx) >= 0
+    else:
+        l_alive = l_match = torch.zeros((B, C, 1), dtype=torch.bool,
+                                        device=dev)
+        l_active = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+    i8 = torch.int8
+    return dict(
+        f_alive=f_alive.to(i8), f_match=f_match.to(i8),
+        f_active=f_active.to(i8).contiguous(),
+        l_alive=l_alive.to(i8).contiguous(), l_match=l_match.to(i8),
+        l_active=l_active.to(i8).contiguous(), live0=live0.to(i8).contiguous(),
+    )
+
+
+def span_walk_rel(reads, read_lens, anchor, rows, offs, live0,
+                  t: IndexTables, *, l_steps: int):
+    """``engine_fast._span_walk_rel(use_pallas=True)``: the masks of
+    :func:`rel_walk_masks` through :func:`double_walk`.  Returns (live
+    (B, C) bool, score (B,) int32, mm (B,) int32)."""
+    live, score, mm = double_walk(**rel_walk_masks(
+        reads, read_lens, anchor, rows, offs, live0, t, l_steps=l_steps))
+    return live != 0, score, mm
 
 
 def walk_args(reads, read_lens, anchor, rows, offs, live0,

@@ -1,11 +1,12 @@
-"""Synthetic FASTQ counting workloads written to disk, made from a seed.
+"""Synthetic workloads written to disk, made from a seed.
 
 The recipe of ``bench.py``'s ``build_workload``: random features (the
 library JSON doubles each with its reverse complement at load), reads
 sampled as fragments of the doubled rows, ~20% with one substitution and
 ~5% replaced by junk.  ``write_workload`` writes the library JSON and the
 FASTQ file(s) that the CLI reads, so a run exercises the whole path from
-parsing to the TSV.
+parsing to the TSV.  ``write_bam_workload`` writes the same library with a
+synthetic 10x BAM over it, the recipe of ``bench.py --bam``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from nimble_tpu.io.synth import make_synthetic_bam
 from nimble_tpu.utils.dna import encode_bases, revcomp
 
 _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -25,7 +27,7 @@ _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 @dataclass(frozen=True)
 class Workload:
     library: str                 # library JSON path
-    fastqs: List[str]            # R1 (and R2 when paired)
+    inputs: List[str]            # the CLI's -i files: R1 (and R2), or the BAM
 
 
 def library_json(features: List[str]) -> list:
@@ -63,6 +65,11 @@ def write_fastq(path: str, mat: np.ndarray) -> None:
         f.write(rec.tobytes())
 
 
+def _features(rng, n_features: int, feat_len: int) -> List[str]:
+    return ["".join(rng.choice(list("ACGT"), size=feat_len))
+            for _ in range(n_features)]
+
+
 def generate(*, n_features=50, feat_len=500, read_len=90, n_reads=1 << 16,
              seed=0, paired=False, mate_gap: Optional[int] = None):
     """Features and reads from ``seed``.
@@ -72,8 +79,7 @@ def generate(*, n_features=50, feat_len=500, read_len=90, n_reads=1 << 16,
     ``mate_gap`` bases (default ``read_len``) downstream on the same row.
     """
     rng = np.random.default_rng(seed)
-    feats = ["".join(rng.choice(list("ACGT"), size=feat_len))
-             for _ in range(n_features)]
+    feats = _features(rng, n_features, feat_len)
     doubled = [x for s in feats for x in (s, revcomp(s))]
     codes = np.stack([encode_bases(s) for s in doubled])
     gap = read_len if mate_gap is None else mate_gap
@@ -113,4 +119,22 @@ def write_workload(out_dir: str, **kw) -> Workload:
     if r2 is not None:
         fastqs.append(os.path.join(out_dir, "reads_R2.fastq"))
         write_fastq(fastqs[1], r2)
-    return Workload(library=lib, fastqs=fastqs)
+    return Workload(library=lib, inputs=fastqs)
+
+
+def write_bam_workload(out_dir: str, *, n_features=50, feat_len=500,
+                       n_groups=16384, seed=0) -> Workload:
+    """Write the library JSON of :func:`generate` (same ``n_features``,
+    ``feat_len``, ``seed``) and a synthetic 10x BAM over its features:
+    ``n_groups`` UMI groups of 4 read pairs, 90 bp, every 5th fragment with
+    one substitution (``bench.py --bam``'s recipe; 8 records per group)."""
+    feats = _features(np.random.default_rng(seed), n_features, feat_len)
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, "library.json")
+    with open(lib, "w") as f:
+        json.dump(library_json(feats), f)
+    bam = os.path.join(out_dir, "reads.bam")
+    make_synthetic_bam(bam, feats, n_groups=n_groups, pairs_per_group=4,
+                       read_len=90, seed=seed + 1, mutate_every=5,
+                       stream=True)
+    return Workload(library=lib, inputs=[bam])

@@ -1,9 +1,12 @@
 """The port's CLI: FASTQ counting on the CPU, refusals, and no jax.
 
 ``nimble_tpu_torch`` must never import jax: a subprocess imports the
-package, runs its CPU slice end to end, and checks ``sys.modules``.
+package, runs its CPU slice end to end (FASTQ, and the BAM branch in both
+walk modes), and checks ``sys.modules``.  The BAM branch's own cases are in
+``tests/test_torch_bam.py``.
 """
 
+import gzip
 import os
 import subprocess
 import sys
@@ -57,7 +60,8 @@ def test_cli_cuda_without_cuda_exits(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["-i", "reads.bam"], "BAM input is not yet ported"),
+    (["-i", "reads.bam", "-r", library_path("mismatch.json"), "-o",
+      "o2.tsv.gz"], "BAM input with more than one library"),
     (["-i", "reads.fastq", "--engine", "mesh"], "mesh is not yet ported"),
     (["-i", "reads.txt"], "Unsupported file format"),
     (["-i", "reads.fastq", "-t", "40:0.9,50:0.5"], "number of trim options"),
@@ -69,20 +73,33 @@ def test_cli_refusals(tmp_path, extra, match):
 
 
 def test_port_never_imports_jax(tmp_path):
+    """The FASTQ run, then the BAM branch in both walk modes."""
     out = str(tmp_path / "out.tsv")
+    bam_out = str(tmp_path / "bam_")
     code = textwrap.dedent(f"""
         import sys
         import nimble_tpu_torch
         import nimble_tpu_torch.cli, nimble_tpu_torch.workload
         from nimble_tpu_torch.ops import (
-            _build, compact, device_tables, hashing, probe, span_walk)
+            _build, compact, device_tables, double_walk, full, hashing, probe,
+            span_walk)
         from nimble_tpu_torch.models import aligner
+        from nimble_tpu.pipeline import bam_fast
         assert "jax" not in sys.modules, "import pulled in jax"
         rc = nimble_tpu_torch.cli.main([
             "-r", {library_path("basic.json")!r},
             "-i", {reads_path("basic.fastq")!r},
             "-o", {out!r}, "-f", "none", "--device", "cpu"])
         assert rc == 0
+        wl = nimble_tpu_torch.workload.write_bam_workload(
+            {str(tmp_path / "bam")!r}, n_features=4, feat_len=200,
+            n_groups=64, seed=2)
+        for walk in ("fused", "double"):
+            rc = nimble_tpu_torch.cli.main([
+                "-r", wl.library, "-i", wl.inputs[0],
+                "-o", {bam_out!r} + walk + ".tsv.gz", "--device", "cpu",
+                "-c", "3", "--walk", walk])
+            assert rc == 0
         leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
         assert not leaked, leaked
         print("NO_JAX_OK")
@@ -93,3 +110,6 @@ def test_port_never_imports_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
     assert open(out).read().splitlines() == BASIC_LINES
+    runs = [gzip.open(bam_out + w + ".tsv.gz").read()
+            for w in ("fused", "double")]
+    assert runs[0] == runs[1] and runs[0].count(b"\n") > 100

@@ -89,7 +89,7 @@ def test_paired_fixtures_match_jax_engine(tmp_path):
 def test_synthetic_single_end(tmp_path, seed, read_len, chunk):
     wl = write_workload(str(tmp_path / "wl"), n_features=10, feat_len=400,
                         read_len=read_len, n_reads=1500, seed=seed)
-    got = _both(tmp_path, wl.library, wl.fastqs, chunk_reads=chunk)
+    got = _both(tmp_path, wl.library, wl.inputs, chunk_reads=chunk)
     assert len(got.splitlines()) > 10
 
 
@@ -99,7 +99,7 @@ def test_synthetic_paired(tmp_path, chem):
     wl = write_workload(str(tmp_path / "wl"), n_features=8, feat_len=400,
                         read_len=80, n_reads=1000, seed=3, paired=True,
                         mate_gap=60)
-    got = _both(tmp_path, wl.library, wl.fastqs, chem=chem)
+    got = _both(tmp_path, wl.library, wl.inputs, chem=chem)
     assert len(got.splitlines()) > 5
 
 
@@ -146,9 +146,9 @@ def test_torch_engine_matches_host_oracle(tmp_path, paired):
                         read_len=70, n_reads=400, seed=4, paired=paired,
                         mate_gap=50)
     chem = LibraryChemistry.UNSTRANDED
-    got = _tsv(_torch_engine, wl.library, wl.fastqs, tmp_path / "t.tsv",
+    got = _tsv(_torch_engine, wl.library, wl.inputs, tmp_path / "t.tsv",
                chem=chem)
-    want = _tsv(HostAlignEngine, wl.library, wl.fastqs, tmp_path / "h.tsv",
+    want = _tsv(HostAlignEngine, wl.library, wl.inputs, tmp_path / "h.tsv",
                 chem=chem)
     assert got == want
     assert len(got.splitlines()) > 5
