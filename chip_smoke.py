@@ -8,18 +8,24 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases; each one passes or the script exits non-zero (nothing is caught,
 nothing falls back to the CPU):
 
-1. build: compile every csrc/*.cu kernel (fused_span_walk, double_walk)
-   with nvcc for sm_90a from the checkout's sources, one nvcc per source,
-   all started together;
+1. build: compile every csrc/*.cu kernel (fused_span_walk, double_walk,
+   gather_rows) with nvcc for sm_90a from the checkout's sources, one nvcc
+   per source, all started together;
 2. kernel: each kernel against its plain torch version on the same CUDA
    tensors at the main path's shapes (B = 8192 reads, C = 8 candidates,
    Lmax = 92 and 96, candidates probed from a real index; for double_walk
    the masks of ops.span_walk.rel_walk_masks at l_steps = Lmax - k, and a
-   case with l_steps = 0); outputs must be bit-equal; both timed per call
+   case with l_steps = 0; for the three gathers of gather_rows the gather
+   probe's (4096, 8) table and 65,536 rows, and a (1024, 8) table under
+   48 KiB of shared memory); outputs must be bit-equal; both timed per call
    with CUDA events (``ms``, ``plain_ms``: what a caller waits, host launch
    gaps included) and by device time from a torch.profiler trace
-   (``device_ms``, ``plain_device_ms``);
-3. fastq: the port's CLI (``nimble_tpu_torch.cli.main``) counts a FASTQ on
+   (``device_ms``, ``plain_device_ms``); the gathers also against
+   ``torch.index_select``, the gather from device memory;
+3. gather: the port's gather probe (``nimble_tpu_torch.probe_gather``, the
+   entry point of the three gather kernels) end to end on the card; every
+   ``match=`` must be true;
+4. fastq: the port's CLI (``nimble_tpu_torch.cli.main``) counts a FASTQ on
    the card at two library sizes, the bench workload (50 features x 500 bp,
    2^19 reads of 90 bp) and an MHC-scale library (1,000 features x
    1,500 bp), with ``--walk fused`` and ``--walk double``.  Each run's
@@ -27,17 +33,35 @@ nothing falls back to the CPU):
    with ``--device cpu`` byte for byte, and the TSV of a few thousand reads
    must equal the one written through nimble_tpu.core.calls.HostAlignEngine,
    the NumPy oracle;
-4. bam: the CLI on synthetic 10x BAMs over the same two libraries (16,384
-   groups = 131,072 records; 65,536 groups = 524,288 records), ``--walk
-   fused`` and ``--walk double``, each on the card and with ``--device
-   cpu``, with 4 cores (3 consumer threads).  Each card run's kernel counter
-   must grow and the four decompressed forensic TSVs must be byte-equal.  Oracles: the
-   golden fixture tests/data/golden/forensic.bam through process_fast with
+5. multi-fastq: the CLI with several libraries in one call (one parse, one
+   stacked device pass per slice for all libraries): four bench libraries
+   (seeds 0-3) and the bench library plus the MHC-scale one (bench's
+   2^16 buckets rebuilt at MHC's 2^21), 2^19 mixed reads drawn equally
+   from every library, ``--walk fused`` and ``--walk double``.  Each
+   library's TSV must equal its single-library card run and the same
+   N-library run with ``--device cpu``, byte for byte, and the stacked
+   run's walk launches must equal one single-library run's (one launch per
+   slice serves all libraries, not L);
+6. bam: the CLI on synthetic 10x BAMs over the same two libraries (16,384
+   groups = 131,072 records each), ``--walk fused`` and ``--walk double``,
+   each on the card and with ``--device cpu``, with 4 cores (3 consumer
+   threads).  Each card run's kernel counter must grow and the four
+   decompressed forensic TSVs must be byte-equal.  Oracles: the golden
+   fixture tests/data/golden/forensic.bam through process_fast with
    the torch engine on the card (both walks, both quirk modes) must equal
    forensic_quirks.tsv / forensic_noquirks.tsv, and 4,096 records of the
    bench BAM must give the card's CLI the bytes of bam_pipeline.process with
    HostAlignEngine.  ``--trace`` also profiles the MHC card runs and prints
-   the card's busy share.
+   the card's busy share;
+7. multi-bam: the CLI with the four bench libraries over one BAM of 131,072
+   records (``-c 4``), with uniform trim (one stacked pass per batch) and
+   with per-library ``-t`` settings (per-engine launches); each library's
+   decompressed forensic TSV must equal its single-library card run and
+   the ``--device cpu`` run, byte for byte.
+
+Cut to fit the time limit: the MHC BAM runs read 131,072 records (16,384
+groups) rather than 524,288; that cell is bound by the host orientation
+memo, not the card.
 
 Prints the card's name and power limit (as nvidia-smi reports them), JSON
 lines of the slice results and per-kernel results, and as its last line
@@ -67,9 +91,25 @@ SIZES = (
     # (name, features, feature length, BAM groups): the bench workload, then
     # an MHC-scale library (2,000 doubled rows, about 3 Mbp)
     ("bench", 50, 500, 16384),
-    ("mhc", 1000, 1500, 65536),
+    ("mhc", 1000, 1500, 16384),
 )
+MULTI_FASTQ = (
+    # (name, library sizes): library i from seed --seed + i
+    ("4 x bench", ((50, 500),) * 4),
+    ("bench + mhc", ((50, 500), (1000, 1500))),
+)
+MULTI_BAM_GROUPS = 16384
+MULTI_BAM_TRIMS = "40:0.9,30:0.5,40:0.9,30:0.5"  # the JSON's is 40:0.9
 WALK_KERNELS = {"fused": "fused_span_walk", "double": "double_walk"}
+GATHER_KERNELS = ("gather_take", "gather_taa", "gather_lane")
+GATHER_SHAPES = ((4096, 8, 65536), (1024, 8, 65536))  # (N, W, M)
+REPLACES = {
+    "fused_span_walk": "nimble_tpu/ops/pallas_fused.py:130",
+    "double_walk": "nimble_tpu/ops/pallas_walk.py:75",
+    "gather_take": "scripts/probe_mosaic_gather.py:75",
+    "gather_taa": "scripts/probe_mosaic_gather.py:101",
+    "gather_lane": "scripts/probe_mosaic_gather.py:128",
+}
 
 
 def nvidia_smi() -> str:
@@ -131,28 +171,32 @@ class Counters:
     """The kernel wrappers' launch counters, zeroed around one run."""
 
     def __init__(self):
+        from nimble_tpu_torch.ops import gather
         from nimble_tpu_torch.ops.double_walk import double_walk
         from nimble_tpu_torch.ops.span_walk import fused_span_walk
 
         self.wrappers = {"fused_span_walk": fused_span_walk,
-                         "double_walk": double_walk}
+                         "double_walk": double_walk,
+                         **{n: getattr(gather, n) for n in GATHER_KERNELS}}
         self.main_path = {name: 0 for name in self.wrappers}
 
     @contextlib.contextmanager
-    def run(self, label: str, walk: str):
-        """Counts of one main-path run; the run's walk kernel must launch
-        and the other must not."""
+    def run(self, label: str, walk: str = "", kernels=()):
+        """Counts of one main-path run: the run's walk kernel (or each of
+        ``kernels``) must launch and every other kernel must not."""
         import torch
 
+        want = set(kernels) | ({WALK_KERNELS[walk]} if walk else set())
         torch.cuda.synchronize()
         for w in self.wrappers.values():
             w.launches = 0
         got = {}
         yield got
         got.update({n: w.launches for n, w in self.wrappers.items()})
-        want = WALK_KERNELS[walk]
-        if got[want] <= 0 or any(v for n, v in got.items() if n != want):
-            raise AssertionError(f"{label}: launch counts {got} (walk={walk})")
+        if any(got[n] <= 0 for n in want) or any(
+                v for n, v in got.items() if n not in want):
+            raise AssertionError(f"{label}: launch counts {got} (want "
+                                 f"{sorted(want)})")
         for name, count in got.items():
             self.main_path[name] += count
 
@@ -273,6 +317,76 @@ def phase_kernel(seed: int):
     return rows
 
 
+def phase_gather_kernels(seed: int):
+    """The three gather kernels vs plain (and vs ``index_select``) at the
+    gather probe's shapes; returns per-case rows by kernel."""
+    import numpy as np
+    import torch
+
+    from nimble_tpu_torch.ops import gather
+
+    rows = {n: [] for n in GATHER_KERNELS}
+    for N, W, M in GATHER_SHAPES:
+        rng = np.random.default_rng(seed)
+        tab = torch.from_numpy(rng.integers(0, 2**32, size=(N, W),
+                                            dtype=np.uint32).view(np.int32))
+        tab = tab.cuda()
+        idx = torch.from_numpy(rng.integers(0, N, size=(M,),
+                                            dtype=np.int32)).cuda()
+        idx2 = torch.from_numpy(rng.integers(0, N, size=(M, W),
+                                             dtype=np.int32)).cuda()
+        cases = {"gather_take": (tab, idx),
+                 "gather_taa": (tab, idx2),
+                 "gather_lane": (tab.t().contiguous(), idx2.t().contiguous())}
+        base = {"baseline_ms": cuda_ms(lambda: tab.index_select(0, idx), 200),
+                "baseline_device_ms": device_ms(
+                    lambda: tab.index_select(0, idx), 50)}
+        for name, (a, b) in cases.items():
+            fn = getattr(gather, name)
+            plain = getattr(gather, name + "_plain")
+            got = fn(a, b)
+            torch.cuda.synchronize()
+            want = plain(a, b)
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name} ({N}, {W}): {got.shape} "
+                                     f"{got.dtype} vs {want.shape}")
+            err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+            if err:
+                raise AssertionError(f"{name} ({N}, {W}): kernel disagrees "
+                                     f"with plain, max |err| {err}")
+            row = {"N": N, "W": W, "M": M, "max_abs_err": err,
+                   "smem_kib": N * W * 4 / 1024,
+                   **_timings(lambda: fn(a, b), lambda: plain(a, b),
+                              name + "_kernel"), **base}
+            rows[name].append(row)
+            print(f"[kernel] {name} table ({N}, {W}) ({row['smem_kib']:.0f} "
+                  f"KiB of shared memory), M={M}: bit-equal to plain; per "
+                  f"call (CUDA events): kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.4f} ms, index_select "
+                  f"{row['baseline_ms']:.4f} ms; device time (profiler): "
+                  f"kernel {row['device_ms']:.4f} ms, plain "
+                  f"{row['plain_device_ms']:.4f} ms, index_select "
+                  f"{row['baseline_device_ms']:.4f} ms")
+    return rows
+
+
+def phase_gather(counters: Counters):
+    """The gather probe's entry point end to end on the card."""
+    from nimble_tpu_torch import probe_gather
+
+    out = io.StringIO()
+    with counters.run("probe_gather", kernels=GATHER_KERNELS) as counts:
+        with contextlib.redirect_stdout(out):
+            rc = probe_gather.main([])
+    text = out.getvalue()
+    for line in text.splitlines():
+        print(f"[gather] {line}")
+    if rc != 0 or text.count("match=True") != 3 or "match=False" in text:
+        raise AssertionError(f"probe_gather: rc {rc}, matches "
+                             f"{text.count('match=True')} of 3")
+    print(f"[gather] probe_gather: three match=True; launches {dict(counts)}")
+
+
 def _tsv_lines(path: str):
     with open(path, "rb") as f:
         data = f.read()
@@ -372,6 +486,167 @@ def phase_fastq(tmp: str, seed: int, n_reads: int, counters: Counters):
         print(f"[fastq] {name}: {len(gpu_lines) - 1} callsets; cuda TSVs "
               f"(fused, double) == cpu TSV; {ORACLE_READS}-read cuda TSV == "
               "HostAlignEngine TSV")
+    return rows
+
+
+def _library_argv(libraries, outs):
+    return [a for lib, out in zip(libraries, outs)
+            for a in ("-r", lib, "-o", out)]
+
+
+def phase_multi_fastq(tmp: str, seed: int, n_reads: int, counters: Counters):
+    """The CLI with several libraries on one FASTQ; returns result rows."""
+    from nimble_tpu_torch.workload import write_multi_workload
+
+    rows = []
+    for name, libraries in MULTI_FASTQ:
+        d = os.path.join(tmp, "multi_" + name.replace(" ", ""))
+        t0 = time.perf_counter()
+        wl = write_multi_workload(d, libraries=libraries, read_len=90,
+                                  n_reads=n_reads, seed=seed)
+        L = len(libraries)
+        n_in = n_reads // L * L
+        print(f"[multi-fastq] {name}: wrote {L} libraries and {n_in} reads "
+              f"in {time.perf_counter() - t0:.1f} s")
+
+        def run(tag, libs, device, walk):
+            outs = [os.path.join(d, f"{tag}_{i}.tsv")
+                    for i in range(len(libs))]
+            argv = _library_argv(libs, outs) + [
+                "-i", wl.inputs[0], "--device", device, "--walk", walk]
+            counts = {}
+            if device == "cuda":
+                with counters.run(f"multi-fastq {name} {tag}", walk) as counts:
+                    rc, wall, _ = _quiet_cli(argv)
+            else:
+                rc, wall, _ = _quiet_cli(argv)
+            if rc != 0:
+                raise AssertionError(f"multi-fastq {name} {tag}: rc {rc}")
+            return [_tsv_lines(o)[0] for o in outs], wall, dict(counts)
+
+        stacked = {walk: run(f"cuda_{walk}", wl.libraries, "cuda", walk)
+                   for walk in WALK_KERNELS}
+        cpu = run("cpu_fused", wl.libraries, "cpu", "fused")
+        singles = [run(f"single{i}", [lib], "cuda", "fused")
+                   for i, lib in enumerate(wl.libraries)]
+        single_tsvs = [s[0][0] for s in singles]
+        single_launches = [s[2]["fused_span_walk"] for s in singles]
+        if any(t.count(b"\n") < 2 for t in single_tsvs):
+            raise AssertionError(f"multi-fastq {name}: a library counted "
+                                 "nothing")
+        if len(set(single_launches)) != 1:
+            raise AssertionError(f"multi-fastq {name}: single-library runs "
+                                 f"launched {single_launches}")
+        seq_wall = sum(s[1] for s in singles)
+        for walk, (tsvs, wall, counts) in stacked.items():
+            if tsvs != cpu[0]:
+                raise AssertionError(f"multi-fastq {name} {walk}: cuda TSVs "
+                                     "!= cpu TSVs")
+            if tsvs != single_tsvs:
+                raise AssertionError(f"multi-fastq {name} {walk}: TSVs != "
+                                     "single-library TSVs")
+            launches = counts[WALK_KERNELS[walk]]
+            if launches != single_launches[0]:
+                raise AssertionError(
+                    f"multi-fastq {name} {walk}: {launches} walk launches, "
+                    f"one single-library run {single_launches[0]}")
+            row = {"case": name, "libraries": [list(x) for x in libraries],
+                   "reads": n_in, "walk": walk, "stacked_wall_s": wall,
+                   "stacked_reads_per_s": n_in / wall,
+                   "sequential_wall_s": seq_wall,
+                   "sequential_reads_per_s": n_in / seq_wall,
+                   "stacked_walk_launches": launches,
+                   "sequential_walk_launches": sum(single_launches),
+                   "cpu_stacked_wall_s": cpu[1]}
+            rows.append(row)
+            print(f"[multi-fastq] {name}, {n_in} reads, {walk}: stacked CLI "
+                  f"{wall:.2f} s = {row['stacked_reads_per_s']:.0f} reads/s; "
+                  f"{L} single-library CLI runs {seq_wall:.2f} s = "
+                  f"{row['sequential_reads_per_s']:.0f} reads/s; walk "
+                  f"launches stacked {launches}, sequential "
+                  f"{sum(single_launches)}; --device cpu stacked "
+                  f"{cpu[1]:.2f} s")
+        print(f"[multi-fastq] {name}: each library's TSV (cuda fused, cuda "
+              "double, cpu) == its single-library card run, byte for byte")
+    return rows
+
+
+def phase_multi_bam(tmp: str, seed: int, counters: Counters):
+    """The CLI with the four bench libraries on one BAM, uniform and
+    per-library trim; returns result rows."""
+    from nimble_tpu_torch.workload import write_multi_bam_workload
+
+    d = os.path.join(tmp, "multi_bam")
+    libraries = ((50, 500),) * 4
+    t0 = time.perf_counter()
+    wl = write_multi_bam_workload(d, libraries=libraries,
+                                  n_groups=MULTI_BAM_GROUPS, seed=seed)
+    n_records = 8 * MULTI_BAM_GROUPS
+    print(f"[multi-bam] wrote 4 libraries and {n_records} records in "
+          f"{time.perf_counter() - t0:.1f} s")
+    trims = MULTI_BAM_TRIMS.split(",")
+
+    def run(tag, libs, device, trim=None):
+        outs = [os.path.join(d, f"{tag}_{i}.tsv.gz")
+                for i in range(len(libs))]
+        argv = _library_argv(libs, outs) + [
+            "-i", wl.inputs[0], "--device", device, "-c", "4"]
+        if trim:
+            argv += ["-t", trim]
+        counts = {}
+        if device == "cuda":
+            with counters.run(f"multi-bam {tag}", "fused") as counts:
+                rc, wall, _ = _quiet_cli(argv)
+        else:
+            rc, wall, _ = _quiet_cli(argv)
+        if rc != 0:
+            raise AssertionError(f"multi-bam {tag}: rc {rc}")
+        return ([_gunzip(o) for o in outs], wall,
+                dict(counts).get("fused_span_walk", 0))
+
+    uniform = run("cuda_uniform", wl.libraries, "cuda")
+    uniform_cpu = run("cpu_uniform", wl.libraries, "cpu")
+    per = run("cuda_per_library", wl.libraries, "cuda", MULTI_BAM_TRIMS)
+    per_cpu = run("cpu_per_library", wl.libraries, "cpu", MULTI_BAM_TRIMS)
+    singles = [run(f"single{i}", [lib], "cuda")
+               for i, lib in enumerate(wl.libraries)]
+    singles_trim = [singles[i] if trim == "40:0.9"
+                    else run(f"single{i}_trim", [lib], "cuda", trim)
+                    for i, (lib, trim) in enumerate(zip(wl.libraries, trims))]
+    for label, got, cpu, want in (
+            ("uniform", uniform, uniform_cpu, singles),
+            ("per-library trim", per, per_cpu, singles_trim)):
+        want_bytes = [w[0][0] for w in want]
+        if got[0] != want_bytes or cpu[0] != want_bytes:
+            raise AssertionError(f"multi-bam {label}: TSVs differ from the "
+                                 "single-library / cpu runs")
+        if min(b.count(b"\n") for b in want_bytes) < MULTI_BAM_GROUPS:
+            raise AssertionError(f"multi-bam {label}: too few rows")
+    if (uniform[2] != singles[0][2]
+            or per[2] != sum(s[2] for s in singles_trim)):
+        raise AssertionError(
+            f"multi-bam: walk launches stacked {uniform[2]} (single "
+            f"{singles[0][2]}), per-engine {per[2]} (singles "
+            f"{[s[2] for s in singles_trim]})")
+    seq_wall = sum(s[1] for s in singles)
+    rows = []
+    for label, got, cpu in (("uniform", uniform, uniform_cpu),
+                            ("per-library trim", per, per_cpu)):
+        row = {"case": label, "libraries": 4, "records": n_records,
+               "cuda_wall_s": got[1], "cuda_records_per_s": n_records / got[1],
+               "cpu_wall_s": cpu[1], "walk_launches": got[2]}
+        rows.append(row)
+        how = ("one stacked pass" if label == "uniform"
+               else "per-engine launches")
+        print(f"[multi-bam] {label} ({how}): "
+              f"CLI {got[1]:.2f} s = {row['cuda_records_per_s']:.0f} "
+              f"records/s; --device cpu {cpu[1]:.2f} s; walk launches "
+              f"{got[2]}")
+    rows[0]["sequential_wall_s"] = seq_wall
+    print(f"[multi-bam] 4 single-library CLI runs {seq_wall:.2f} s = "
+          f"{n_records / seq_wall:.0f} records/s; walk launches "
+          f"{[s[2] for s in singles]}; every library's TSV (stacked, "
+          "per-engine, cpu) == its single-library card run, byte for byte")
     return rows
 
 
@@ -586,35 +861,48 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_build()
     kernel = phase_kernel(args.seed)
+    kernel.update(phase_gather_kernels(args.seed))
     counters = Counters()
+    phase_gather(counters)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         fastq_rows = phase_fastq(tmp, args.seed, args.reads, counters)
+        multi_fastq_rows = phase_multi_fastq(tmp, args.seed, args.reads,
+                                             counters)
         bam_rows = phase_bam(tmp, args.seed, counters, args.trace)
+        multi_bam_rows = phase_multi_bam(tmp, args.seed, counters)
 
     leaked = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
     if leaked:
         raise AssertionError(f"the port's path imported jax: {leaked[:5]}")
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"fastq": fastq_rows}))
+    print(json.dumps({"multi_fastq": multi_fastq_rows}))
     print(json.dumps({"bam": bam_rows}))
-    replaces = {"fused_span_walk": "nimble_tpu/ops/pallas_fused.py:130",
-                "double_walk": "nimble_tpu/ops/pallas_walk.py:75"}
+    print(json.dumps({"multi_bam": multi_bam_rows}))
     lines = []
     for name, cases in kernel.items():
         main_row = cases[0]
-        shape = f"B={KERNEL_BATCH} C=8 Lmax={main_row['Lmax']}"
-        if "T" in main_row:
-            shape += f" T={main_row['T']} Tl={main_row['Tl']}"
+        extra = {}
+        if name in GATHER_KERNELS:
+            source = "nimble_tpu_torch/csrc/gather_rows.cu"
+            shape = (f"table ({main_row['N']}, {main_row['W']}) int32, "
+                     f"M={main_row['M']}")
+            extra = {k: main_row[k]
+                     for k in ("baseline_ms", "baseline_device_ms")}
+        else:
+            source = f"nimble_tpu_torch/csrc/{name}.cu"
+            shape = f"B={KERNEL_BATCH} C=8 Lmax={main_row['Lmax']}"
+            if "T" in main_row:
+                shape += f" T={main_row['T']} Tl={main_row['Tl']}"
         lines.append({
-            "name": name, "route": "cuda",
-            "source": f"nimble_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": REPLACES[name],
             "launches": counters.main_path[name],
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
             "device_ms": main_row["device_ms"],
             "plain_device_ms": main_row["plain_device_ms"],
-            "shape": shape,
+            "shape": shape, **extra,
         })
     print(json.dumps({"kernels": lines}))
     print(smi)

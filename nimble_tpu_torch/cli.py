@@ -6,19 +6,22 @@ The surface of ``nimble_tpu.cli`` (the reference CLI's flags):
                    [-i mates.fastq] -o out.tsv [-o out2.tsv ...]
                    [-c CORES] [-f STRAND_FILTER] [-t LEN:STRICT,...]
                    [--device cuda|cpu] [--walk fused|double]
-  nimble-tpu-torch -r lib.json -i reads.bam -o out.tsv.gz
+  nimble-tpu-torch -r lib.json [-r lib2.json ...] -i reads.bam
+                   -o out.tsv.gz [-o out2.tsv.gz ...]
                    [-c CORES] [-p] [--no-parity-quirks] [...]
 
-FASTQ input: each library runs through ``pipeline.fastq_pipeline.process``
-on its own, one after another, as the reference CLI does.  BAM input (10x
-scRNA-seq, written as the gzipped forensic TSV) runs through
+Every library gets a ``TorchAlignEngine`` on ``--device`` (default
+``cuda``) with the walk kernel ``--walk`` (the reference's
+``NIMBLE_PALLAS=fused|walk``), and all libraries go through one pipeline
+call, as in the JAX package's CLI.  FASTQ input runs through the port's
+``pipeline.fastq_pipeline.process``: the input is parsed once, and several
+libraries share one stacked device pass per chunk.  BAM input (10x
+scRNA-seq, written as gzipped forensic TSVs) runs through the port's
 ``pipeline.bam_fast.process_fast`` with ``CORES - 1`` consumer threads;
-it needs the native host library and takes one library.  Every library gets
-a ``TorchAlignEngine`` on ``--device`` (default ``cuda``) with the walk
-kernel ``--walk`` (the reference's ``NIMBLE_PALLAS=fused|walk``).  Asking
-for CUDA on a machine without it is an error, never a silent CPU run.
-``--engine mesh`` (multi-device) is not ported yet and exits with a
-message.
+several libraries share one stacked pass when their trim settings agree.
+BAM input needs the native host library.  Asking for CUDA on a machine
+without it is an error, never a silent CPU run.  ``--engine mesh``
+(multi-device) is not ported yet and exits with a message.
 """
 
 from __future__ import annotations
@@ -33,9 +36,10 @@ from nimble_tpu import native
 from nimble_tpu.config import LibraryChemistry
 from nimble_tpu.index.build import build_index
 from nimble_tpu.library import get_reference_sequence_data, load_reference_library
-from nimble_tpu.pipeline import fastq_pipeline
 from nimble_tpu_torch.models.aligner import TorchAlignEngine
 from nimble_tpu_torch.ops.compact import WALKS
+from nimble_tpu_torch.pipeline.bam_fast import process_fast
+from nimble_tpu_torch.pipeline.fastq_pipeline import process
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,20 +79,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _run_bam(args, engines, references, configs) -> None:
-    """``process_fast`` with the torch engine; restores the interpreter's
-    thread switch interval, which ``process_fast`` lowers and leaves."""
-    from nimble_tpu.pipeline.bam_fast import process_fast
-
-    interval = sys.getswitchinterval()
-    try:
-        process_fast(args.input, engines, references, configs, args.output,
-                     args.num_cores, args.force_bam_paired,
-                     parity_quirks=not args.no_parity_quirks)
-    finally:
-        sys.setswitchinterval(interval)
-
-
 def main(argv: List[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.engine == "mesh":
@@ -121,10 +111,6 @@ def main(argv: List[str] | None = None) -> int:
     if not (is_bam or first.endswith(".fastq") or first.endswith(".fastq.gz")):
         ext = first.rsplit(".", 1)[-1] if "." in first else ""
         raise SystemExit(f"Unsupported file format: {ext}")
-    if is_bam and len(args.reference) > 1:
-        raise SystemExit(
-            "BAM input with more than one library is not yet ported to "
-            "nimble_tpu_torch; run one library per call")
     if is_bam and not native.available():
         raise SystemExit(
             "BAM input needs the native host library (native/nimble_host.cpp, "
@@ -153,13 +139,12 @@ def main(argv: List[str] | None = None) -> int:
     print("Loading read sequences and aligning")
     if is_bam:
         print("Processing as BAM file")
-        _run_bam(args, engines, references, configs)
+        process_fast(args.input, engines, references, configs, args.output,
+                     args.num_cores, args.force_bam_paired,
+                     parity_quirks=not args.no_parity_quirks)
     else:
         print("Processing as FASTQ file")
-        for engine, reference, cfg, out in zip(engines, references, configs,
-                                               args.output):
-            fastq_pipeline.process(args.input, [engine], [reference], [cfg],
-                                   [out])
+        process(args.input, engines, references, configs, args.output)
 
     print("Alignment successful, terminating.")
     return 0

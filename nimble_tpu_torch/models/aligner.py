@@ -138,7 +138,107 @@ def dedupe_packed_rows(buf_all: np.ndarray):
     return reps, gid
 
 
-class TorchAlignEngine:
+class BucketedDispatch:
+    """Dispatch of a chunk in read-length buckets, shared by
+    :class:`TorchAlignEngine` and the stacked multi-library dispatcher.
+
+    A subclass sets ``device``, ``buckets`` and ``launch_batch`` and
+    provides ``_device_pass(bucket, full)``: the device pass of one launch
+    (compact, or with ``full`` the full-output pass).  Dispatch records the
+    calling thread's CUDA stream and collect waits on it.
+    """
+
+    def _launch(self, buf: np.ndarray, bucket: int, *,
+                full: bool = False) -> torch.Tensor:
+        """Upload one bucket's packed rows and run the device pass in
+        launch_batch slices; returns the (..., m, 2) (or with ``full``,
+        (..., m, 3)) int32 device result."""
+        dev_in = torch.from_numpy(buf).to(self.device)
+        run = self._device_pass(bucket, full)
+        outs = [run(dev_in[i : i + self.launch_batch])
+                for i in range(0, dev_in.shape[0], self.launch_batch)]
+        return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
+
+    def _stream(self):
+        """The dispatching thread's CUDA stream (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.current_stream(self.device)
+
+    @staticmethod
+    def _wait(state) -> None:
+        """Wait for a dispatch's launches: collect may run on another host
+        thread, whose current stream need not be the dispatching one."""
+        if state["stream"] is not None:
+            state["stream"].synchronize()
+
+    def compact_dispatch(self, mat: np.ndarray, lens: np.ndarray):
+        """Pack, upload and launch one chunk; returns an opaque state for
+        :meth:`compact_collect`.  Device work is queued asynchronously.
+
+        PRECONDITION: ``mat`` is zero beyond each row's length (the packed
+        entropy gate counts padding as code 0 and subtracts it).
+        """
+        n = mat.shape[0]
+        lens = np.asarray(lens, dtype=np.int32)
+        needs_host = lens > self.buckets[-1]
+        eligible = (lens >= MIN_READ_LENGTH) & ~needs_host
+        launches = []
+        if eligible.any():
+            bucket_arr = np.asarray(self.buckets)
+            bucket_idx = np.searchsorted(bucket_arr, lens)
+            present = np.unique(bucket_idx[eligible])
+            for bi in present:
+                bucket = int(bucket_arr[bi])
+                if len(present) == 1 and eligible.all():
+                    sel, bmat, blens = None, mat, lens
+                else:
+                    sel = np.flatnonzero(eligible & (bucket_idx == bi))
+                    bmat, blens = mat[sel], lens[sel]
+                buf = pack_reads(bmat, blens, bucket)
+                launches.append(
+                    (bucket, sel, len(blens), self._launch(buf, bucket), buf,
+                     blens))
+        return {"n": n, "needs_host": needs_host, "launches": launches,
+                "stream": self._stream()}
+
+    def full_dispatch(self, mat: np.ndarray, lens: np.ndarray,
+                      active: np.ndarray):
+        """Pack, dedupe, upload and launch one batch of the BAM path;
+        returns an opaque state for :meth:`full_collect`.
+
+        ``active`` marks the reads to align (False: skipped records, which
+        get no result).  ``mat`` may hold codes past each (trimmed) length:
+        they are zeroed before packing, as the packed entropy gate needs.
+        Reads longer than the largest bucket go to host rescue at collect.
+        """
+        n = mat.shape[0]
+        lens = np.asarray(lens, dtype=np.int32)
+        act = np.asarray(active, dtype=bool)
+        host_rescue = act & (lens > self.buckets[-1])
+        eligible = act & (lens >= MIN_READ_LENGTH) & ~host_rescue
+        launches = []
+        if eligible.any():
+            mat_z = np.where(
+                np.arange(mat.shape[1], dtype=np.int32)[None, :]
+                < lens[:, None], mat, 0).astype(np.int8, copy=False)
+            bucket_arr = np.asarray(self.buckets)
+            bucket_idx = np.searchsorted(bucket_arr, lens)
+            for bi in np.unique(bucket_idx[eligible]):
+                bucket = int(bucket_arr[bi])
+                sel = np.flatnonzero(eligible & (bucket_idx == bi))
+                buf_all = pack_reads(mat_z[sel], lens[sel], bucket)
+                first, inv = dedupe_packed_rows(buf_all)
+                buf = buf_all[first]
+                launches.append((sel, len(first),
+                                 self._launch(buf, bucket, full=True), buf,
+                                 bucket, inv))
+        return {"n": n, "mat": mat, "lens": lens, "active": act,
+                "host_rescue": host_rescue, "launches": launches,
+                "stream": self._stream()}
+
+
+class TorchAlignEngine(BucketedDispatch):
     """Batched torch/CUDA alignment engine with host-exact filtering.
 
     ``walk`` selects the walk kernel of both device passes: ``"fused"``
@@ -189,65 +289,13 @@ class TorchAlignEngine:
             self._s_min_dev[key] = t
         return t
 
-    def _stream(self):
-        """The dispatching thread's CUDA stream (None on the CPU)."""
-        if self.device.type != "cuda":
-            return None
-        return torch.cuda.current_stream(self.device)
-
-    @staticmethod
-    def _wait(state) -> None:
-        """Wait for a dispatch's launches: collect may run on another host
-        thread, whose current stream need not be the dispatching one."""
-        if state["stream"] is not None:
-            state["stream"].synchronize()
-
-    def _launch(self, buf: np.ndarray, bucket: int, *,
-                full: bool = False) -> torch.Tensor:
-        """Upload one bucket's packed rows and run the compact pass (or, with
-        ``full``, the full-output pass) in launch_batch slices; returns the
-        (m, 2) (or (m, 3)) int32 device result."""
-        dev_in = torch.from_numpy(buf).to(self.device)
+    def _device_pass(self, bucket: int, full: bool):
         kw = dict(t=self.tables, bucket=bucket, c_max=self.c_max,
                   walk=self.walk)
         if full:
-            run = functools.partial(probe_walk_full, **kw)
-        else:
-            run = functools.partial(probe_walk_filter, scalars=self.scalars,
-                                    s_min=self._s_min(bucket), **kw)
-        outs = [run(dev_in[i : i + self.launch_batch])
-                for i in range(0, dev_in.shape[0], self.launch_batch)]
-        return outs[0] if len(outs) == 1 else torch.cat(outs)
-
-    def compact_dispatch(self, mat: np.ndarray, lens: np.ndarray):
-        """Pack, upload and launch one chunk; returns an opaque state for
-        :meth:`compact_collect`.  Device work is queued asynchronously.
-
-        PRECONDITION: ``mat`` is zero beyond each row's length (the packed
-        entropy gate counts padding as code 0 and subtracts it).
-        """
-        n = mat.shape[0]
-        lens = np.asarray(lens, dtype=np.int32)
-        needs_host = lens > self.buckets[-1]
-        eligible = (lens >= MIN_READ_LENGTH) & ~needs_host
-        launches = []
-        if eligible.any():
-            bucket_arr = np.asarray(self.buckets)
-            bucket_idx = np.searchsorted(bucket_arr, lens)
-            present = np.unique(bucket_idx[eligible])
-            for bi in present:
-                bucket = int(bucket_arr[bi])
-                if len(present) == 1 and eligible.all():
-                    sel, bmat, blens = None, mat, lens
-                else:
-                    sel = np.flatnonzero(eligible & (bucket_idx == bi))
-                    bmat, blens = mat[sel], lens[sel]
-                buf = pack_reads(bmat, blens, bucket)
-                launches.append(
-                    (bucket, sel, len(blens), self._launch(buf, bucket), buf,
-                     blens))
-        return {"n": n, "needs_host": needs_host, "launches": launches,
-                "stream": self._stream()}
+            return functools.partial(probe_walk_full, **kw)
+        return functools.partial(probe_walk_filter, scalars=self.scalars,
+                                 s_min=self._s_min(bucket), **kw)
 
     def compact_collect(self, state, defer_unresolved: bool = False):
         """Fetch the results and assemble the flat result dict (see
@@ -284,41 +332,6 @@ class TorchAlignEngine:
         return self.compact_collect(self.compact_dispatch(mat, lens))
 
     # --- full-output interface (BAM forensic path) -------------------------
-
-    def full_dispatch(self, mat: np.ndarray, lens: np.ndarray,
-                      active: np.ndarray):
-        """Pack, dedupe, upload and launch one batch of the BAM path;
-        returns an opaque state for :meth:`full_collect`.
-
-        ``active`` marks the reads to align (False: skipped records, which
-        get no result).  ``mat`` may hold codes past each (trimmed) length:
-        they are zeroed before packing, as the packed entropy gate needs.
-        Reads longer than the largest bucket go to host rescue at collect.
-        """
-        n = mat.shape[0]
-        lens = np.asarray(lens, dtype=np.int32)
-        act = np.asarray(active, dtype=bool)
-        host_rescue = act & (lens > self.buckets[-1])
-        eligible = act & (lens >= MIN_READ_LENGTH) & ~host_rescue
-        launches = []
-        if eligible.any():
-            mat_z = np.where(
-                np.arange(mat.shape[1], dtype=np.int32)[None, :]
-                < lens[:, None], mat, 0).astype(np.int8, copy=False)
-            bucket_arr = np.asarray(self.buckets)
-            bucket_idx = np.searchsorted(bucket_arr, lens)
-            for bi in np.unique(bucket_idx[eligible]):
-                bucket = int(bucket_arr[bi])
-                sel = np.flatnonzero(eligible & (bucket_idx == bi))
-                buf_all = pack_reads(mat_z[sel], lens[sel], bucket)
-                first, inv = dedupe_packed_rows(buf_all)
-                buf = buf_all[first]
-                launches.append((sel, len(first),
-                                 self._launch(buf, bucket, full=True), buf,
-                                 bucket, inv))
-        return {"n": n, "mat": mat, "lens": lens, "active": act,
-                "host_rescue": host_rescue, "launches": launches,
-                "stream": self._stream()}
 
     def full_collect(self, state):
         """Fetch the results and apply the exact host gates.

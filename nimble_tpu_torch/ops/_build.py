@@ -21,7 +21,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
-KERNELS = ("fused_span_walk", "double_walk")  # the sources under csrc/
+KERNELS = ("fused_span_walk", "double_walk", "gather_rows")  # csrc/*.cu
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -8,16 +8,28 @@ here by ``walk="fused"`` / ``walk="double"``), the packed-row unpack of
 anchor's postings start, column 1 the live-lane mask | passed << 16 |
 needs_host << 17 | has_anchor << 18.  The entropy gate is not applied here:
 the host evaluates it in exact f64 at collect.
+
+Stacked libraries (``device_tables.StackedTables``) run through the same
+functions with a per-row library index ``lib``: :func:`probe_walk_filter_multi`
+broadcasts one launch's packed reads over the L libraries and flattens them
+to L*B rows, so one walk-kernel launch serves every library (the
+counterpart of ``probe_walk_filter_packed_multi_chunked``'s vmap).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
-from nimble_tpu_torch.ops.device_tables import FilterScalars, IndexTables
+from nimble_tpu_torch.ops.device_tables import (
+    FilterScalars,
+    IndexTables,
+    StackedTables,
+    take,
+)
 from nimble_tpu_torch.ops.probe import probe_bucketed
 from nimble_tpu_torch.ops.span_walk import (
     fused_span_walk,
@@ -58,6 +70,7 @@ class Candidates:
     rows: torch.Tensor         # (B, c_max) int64 candidate row ids
     offs: torch.Tensor         # (B, c_max) int64 anchor offset in the row
     live0: torch.Tensor        # (B, c_max) bool real candidate lanes
+    lib: Optional[torch.Tensor] = None  # (B,) int64 library (stacked tables)
 
 
 def live_mask(live: torch.Tensor) -> torch.Tensor:
@@ -67,23 +80,28 @@ def live_mask(live: torch.Tensor) -> torch.Tensor:
 
 
 def probe_candidates(packed: torch.Tensor, t: IndexTables, *, bucket: int,
-                     c_max: int) -> Candidates:
-    """Unpack, probe, and gather up to ``c_max`` postings per anchor."""
+                     c_max: int, lib=None) -> Candidates:
+    """Unpack, probe, and gather up to ``c_max`` postings per anchor.  With
+    stacked tables, ``lib`` (B,) int64 names each row's library; postings
+    indices clamp to the padded common extent, as under the JAX vmap, and
+    ``astart`` stays in the row's own library's postings."""
     reads, read_lens = unpack_reads(packed, bucket)
     has_anchor, anchor, bucket_sel, lane_sel, fp_bad = probe_bucketed(
-        reads, read_lens, t, p_limit=bucket - t.k + 1)
-    astart = t.bstart[bucket_sel, lane_sel]
-    acnt = torch.where(has_anchor, t.bcount[bucket_sel, lane_sel], 0)
+        reads, read_lens, t, p_limit=bucket - t.k + 1, lib=lib)
+    astart = take(t.bstart, lib, bucket_sel, lane_sel)
+    acnt = torch.where(has_anchor, take(t.bcount, lib, bucket_sel, lane_sel),
+                       0)
     c_idx = torch.arange(c_max, device=packed.device)
     pidx = (astart.to(torch.int64)[:, None] + c_idx).clamp(
-        0, t.postings_row.shape[0] - 1)
+        0, t.postings_row.shape[-1] - 1)
     return Candidates(
         reads=reads, read_lens=read_lens, has_anchor=has_anchor,
         anchor=anchor, astart=astart,
         needs_host=(has_anchor & (acnt > c_max)) | fp_bad,
-        rows=t.postings_row[pidx].to(torch.int64),
-        offs=t.postings_off[pidx].to(torch.int64),
+        rows=take(t.postings_row, lib, pidx).to(torch.int64),
+        offs=take(t.postings_off, lib, pidx).to(torch.int64),
         live0=c_idx[None, :] < acnt.clamp(max=c_max)[:, None],
+        lib=lib,
     )
 
 
@@ -110,12 +128,12 @@ def walk_candidates(cand: Candidates, t: IndexTables, *, bucket: int,
     args = (cand.reads, cand.read_lens, cand.anchor, cand.rows, cand.offs,
             cand.live0, t)
     if walk == "fused":
-        live, walk_score, walk_mm = fused_span_walk(**walk_args(*args),
-                                                    k=t.k)
+        live, walk_score, walk_mm = fused_span_walk(
+            **walk_args(*args, lib=cand.lib), k=t.k)
     else:
         p_limit = bucket - t.k + 1
         live, walk_score, walk_mm = span_walk_rel(
-            *args, l_steps=min(p_limit - 1, bucket - t.k))
+            *args, l_steps=min(p_limit - 1, bucket - t.k), lib=cand.lib)
     score = torch.where(cand.has_anchor, walk_score + t.k, 0)
     mm = torch.where(cand.has_anchor, walk_mm, 0)
     return live, score, mm
@@ -123,17 +141,19 @@ def walk_candidates(cand: Candidates, t: IndexTables, *, bucket: int,
 
 def probe_walk_filter(packed: torch.Tensor, t: IndexTables,
                       scalars: FilterScalars, s_min: torch.Tensor, *,
-                      bucket: int, c_max: int,
-                      walk: str = "fused") -> torch.Tensor:
+                      bucket: int, c_max: int, walk: str = "fused",
+                      lib=None) -> torch.Tensor:
     """One launch of packed reads -> (B, 2) int32 compact results.
 
     ``s_min`` is the device copy of ``device_tables.s_min_table(...,
     bucket)``; ``c_max`` candidate lanes (<= 16) are walked per read and
     reads whose anchor has more postings go to host rescue.  ``walk``
-    selects the walk kernel (see :func:`walk_candidates`).
+    selects the walk kernel (see :func:`walk_candidates`).  With stacked
+    tables, ``lib`` (B,) names each row's library, ``scalars`` holds
+    ``(L,)`` gates and ``s_min`` is ``(L, bucket + 1)``.
     """
     check_c_max(c_max)
-    cand = probe_candidates(packed, t, bucket=bucket, c_max=c_max)
+    cand = probe_candidates(packed, t, bucket=bucket, c_max=c_max, lib=lib)
     has_anchor, rows = cand.has_anchor, cand.rows
     live, score, mm = walk_candidates(cand, t, bucket=bucket, walk=walk)
 
@@ -147,17 +167,21 @@ def probe_walk_filter(packed: torch.Tensor, t: IndexTables,
     mask = live_mask(live)
 
     read_lens = cand.read_lens
-    s_min_len = s_min[read_lens.clamp(0, s_min.shape[0] - 1).to(torch.int64)]
+    s_min_len = take(s_min, lib,
+                     read_lens.clamp(0, s_min.shape[-1] - 1).to(torch.int64))
+    gates = (scalars.score_threshold, scalars.num_mismatches,
+             scalars.discard_multiple, scalars.discard_nonzero)
+    if lib is not None:
+        gates = tuple(g[lib] for g in gates)
+    threshold, mismatches, discard_multiple, discard_nonzero = gates
     passed = (
         has_anchor
-        & (score >= scalars.score_threshold)
+        & (score >= threshold)
         & (score >= s_min_len)
-        & (mm <= scalars.num_mismatches)
+        & (mm <= mismatches)
+        & ((distinct <= 1) | ~torch.as_tensor(discard_multiple))
+        & ((mm == 0) | ~torch.as_tensor(discard_nonzero))
     )
-    if scalars.discard_multiple:
-        passed &= distinct <= 1
-    if scalars.discard_nonzero:
-        passed &= mm == 0
     needs_host = cand.needs_host
 
     flags = (
@@ -168,6 +192,27 @@ def probe_walk_filter(packed: torch.Tensor, t: IndexTables,
     )
     return torch.stack(
         [cand.astart.to(torch.int32), flags.to(torch.int32)], dim=1)
+
+
+def library_rows(n_libraries: int, B: int, device) -> torch.Tensor:
+    """(L*B,) int64 library index of L copies of a B-row launch, library
+    major: rows ``l*B .. l*B + B - 1`` belong to library ``l``."""
+    return torch.arange(n_libraries, device=device).repeat_interleave(B)
+
+
+def probe_walk_filter_multi(packed: torch.Tensor, st: StackedTables, *,
+                            bucket: int, c_max: int,
+                            walk: str = "fused") -> torch.Tensor:
+    """One launch of (B, ceil(bucket/4) + 2) packed reads against every
+    stacked library -> (L, B, 2) int32, library l's rows in its own combo-id
+    space: ``probe_walk_filter_packed_multi_chunked``.  The B rows are
+    broadcast to L*B rows that go through one :func:`probe_walk_filter`
+    pass (one walk-kernel launch for all libraries)."""
+    L, B = st.n_libraries, packed.shape[0]
+    out = probe_walk_filter(
+        packed.repeat(L, 1), st, st.scalars, st.s_min(bucket), bucket=bucket,
+        c_max=c_max, walk=walk, lib=library_rows(L, B, packed.device))
+    return out.reshape(L, B, 2)
 
 
 def unpack_compact(packed: np.ndarray) -> dict:

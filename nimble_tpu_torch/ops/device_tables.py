@@ -7,17 +7,27 @@ moved to an explicit device.  uint32 arrays (key halves, fingerprints,
 packed reference words) are stored as int32 bit patterns: equality compares
 and the CUDA kernel's ``uint32_t`` view need no conversion, and the tables
 keep the JAX engine's byte size.
+
+Several libraries stack along a leading library axis (:func:`stack_tables`,
+the counterpart of ``MultiLibraryDispatcher.__init__``): the device passes
+then take a per-row library index and read every table through
+:func:`take`.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from nimble_tpu.config import AlignFilterConfig
-from nimble_tpu.ops.device_index import BucketedDeviceIndex
+from nimble_tpu.index.build import KmerIndex
+from nimble_tpu.ops.device_index import (
+    BucketedDeviceIndex,
+    build_bucketed_index,
+)
 
 _TABLE_FIELDS = (
     "bkey_lo", "bkey_hi", "bkey_fp", "bstart", "bcount",
@@ -69,10 +79,22 @@ def tables_from_bucketed_index(bidx: BucketedDeviceIndex,
     )
 
 
+def take(table: torch.Tensor, lib: Optional[torch.Tensor], *idx):
+    """``table[idx]`` from one library's table (``lib`` None), or
+    ``table[lib, idx]`` from a stacked ``(L, ...)`` table, with each row's
+    library index ``lib`` broadcast over the trailing dimensions of
+    ``idx``."""
+    if lib is None:
+        return table[idx]
+    lead = lib.reshape(lib.shape + (1,) * (idx[0].dim() - lib.dim()))
+    return table[(lead,) + idx]
+
+
 @dataclass(frozen=True)
 class FilterScalars:
     """The four integer gates the device applies (the entropy and length
-    gates stay on the host)."""
+    gates stay on the host): Python values for one library, or ``(L,)``
+    tensors for stacked libraries (:meth:`stack`)."""
 
     score_threshold: int
     num_mismatches: int
@@ -87,6 +109,99 @@ class FilterScalars:
             discard_multiple=bool(config.discard_multiple_matches),
             discard_nonzero=bool(config.discard_nonzero_mismatch),
         )
+
+    @classmethod
+    def stack(cls, configs: Sequence[AlignFilterConfig],
+              device) -> "FilterScalars":
+        """One ``(L,)`` tensor per gate, library ``i`` from ``configs[i]``."""
+        one = [cls.from_config(c) for c in configs]
+
+        def col(name, dtype):
+            return torch.tensor([getattr(s, name) for s in one], dtype=dtype,
+                                device=device)
+
+        return cls(
+            score_threshold=col("score_threshold", torch.int32),
+            num_mismatches=col("num_mismatches", torch.int32),
+            discard_multiple=col("discard_multiple", torch.bool),
+            discard_nonzero=col("discard_nonzero", torch.bool),
+        )
+
+
+@dataclass(frozen=True)
+class StackedTables(IndexTables):
+    """Several libraries' tables on a leading library axis, at one common
+    bucket count; each array is padded to the largest library's extent
+    (``bkey_lo`` / ``bkey_hi`` with 0xFFFFFFFF, everything else with 0), as
+    ``MultiLibraryDispatcher`` pads them.  ``max_probe`` is the largest of
+    the libraries'; ``scalars`` holds the per-library gates."""
+
+    n_libraries: int
+    scalars: FilterScalars
+    score_percents: tuple
+    _s_min: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def s_min(self, bucket: int) -> torch.Tensor:
+        """The ``(L, bucket + 1)`` stack of :func:`s_min_table`, one row per
+        library (built once per bucket)."""
+        t = self._s_min.get(bucket)
+        if t is None:
+            t = torch.from_numpy(np.stack(
+                [s_min_table(p, bucket) for p in self.score_percents])
+            ).to(self.bkey_lo.device)
+            self._s_min[bucket] = t
+        return t
+
+
+def stack_tables(indexes: Sequence[KmerIndex],
+                 bidxs: Sequence[BucketedDeviceIndex],
+                 configs: Sequence[AlignFilterConfig],
+                 device) -> StackedTables:
+    """Stack several libraries' bucketed tables on ``device``.
+
+    ``bidxs[i]`` is ``build_bucketed_index(indexes[i])``.  A library with
+    fewer buckets than the largest is rebuilt at that count
+    (``min_buckets``); a build at a library's own count is the table it
+    has.  Raises ``ValueError`` when the libraries disagree on ``k`` or
+    ``ref_pad``, or when a rebuild changed the postings order, in which the
+    combo ids (``astart``) of each library's results are read.
+    """
+    if not indexes or not len(indexes) == len(bidxs) == len(configs):
+        raise ValueError("stack_tables needs one table and one config per "
+                         "library, >= 1")
+    built = list(bidxs)
+    n_buckets = max(b.n_buckets for b in built)
+    rebuilt = [b if b.n_buckets == n_buckets
+               else build_bucketed_index(ix, min_buckets=n_buckets)
+               for b, ix in zip(built, indexes)]
+    b0 = rebuilt[0]
+    if not all(b.k == b0.k and b.ref_pad == b0.ref_pad for b in rebuilt):
+        raise ValueError("the libraries' tables disagree on k / ref_pad")
+    for b, r in zip(built, rebuilt):
+        if not np.array_equal(b.postings_row, r.postings_row):
+            raise ValueError("the postings order changed under the bucket "
+                             "count override; combo ids would not decode")
+    device = torch.device(device)
+
+    def stack(name):
+        arrs = [_to_i32(getattr(b, name)) for b in rebuilt]
+        shape = tuple(max(a.shape[d] for a in arrs)
+                      for d in range(arrs[0].ndim))
+        pad = -1 if name in ("bkey_lo", "bkey_hi") else 0  # 0xFFFFFFFF bits
+        out = np.full((len(arrs),) + shape, pad, dtype=np.int32)
+        for i, a in enumerate(arrs):
+            out[(i,) + tuple(slice(0, s) for s in a.shape)] = a
+        return torch.from_numpy(out).to(device)
+
+    return StackedTables(
+        k=int(b0.k), width=max(int(b.width) for b in rebuilt),
+        max_probe=max(int(b.max_probe) for b in rebuilt),
+        bucket_mask=n_buckets - 1, ref_pad=int(b0.ref_pad),
+        **{f: stack(f) for f in _TABLE_FIELDS},
+        n_libraries=len(rebuilt),
+        scalars=FilterScalars.stack(configs, device),
+        score_percents=tuple(float(c.score_percent) for c in configs),
+    )
 
 
 def s_min_table(score_percent: float, lmax: int) -> np.ndarray:

@@ -11,7 +11,8 @@ result layout is the JAX engine's:
   column 2: score << 16 | mismatches (both < 2^16: reads cap at 1024 bp)
 
 where overflow is the host-rescue flag: more anchor postings than ``c_max``,
-or a fingerprint collision.
+or a fingerprint collision.  :func:`probe_walk_full_multi` serves stacked
+libraries in one pass (``probe_walk_full_packed_multi_chunked``).
 """
 
 from __future__ import annotations
@@ -21,20 +22,23 @@ import torch
 
 from nimble_tpu_torch.ops.compact import (
     check_c_max,
+    library_rows,
     live_mask,
     probe_candidates,
     walk_candidates,
 )
-from nimble_tpu_torch.ops.device_tables import IndexTables
+from nimble_tpu_torch.ops.device_tables import IndexTables, StackedTables
 
 
 def probe_walk_full(packed: torch.Tensor, t: IndexTables, *, bucket: int,
-                    c_max: int, walk: str = "fused") -> torch.Tensor:
+                    c_max: int, walk: str = "fused",
+                    lib=None) -> torch.Tensor:
     """One launch of (B, ceil(bucket/4) + 2) uint8 packed reads -> (B, 3)
     int32 full results; ``walk`` selects the walk kernel
-    (``compact.walk_candidates``)."""
+    (``compact.walk_candidates``); ``lib`` (B,) names each row's library
+    in stacked tables."""
     check_c_max(c_max)
-    cand = probe_candidates(packed, t, bucket=bucket, c_max=c_max)
+    cand = probe_candidates(packed, t, bucket=bucket, c_max=c_max, lib=lib)
     live, score, mm = walk_candidates(cand, t, bucket=bucket, walk=walk)
     col1 = (live_mask(live)
             | (cand.has_anchor.to(torch.int64) << 16)
@@ -42,6 +46,19 @@ def probe_walk_full(packed: torch.Tensor, t: IndexTables, *, bucket: int,
     col2 = (score.to(torch.int64) << 16) | mm
     return torch.stack([cand.astart.to(torch.int32), col1.to(torch.int32),
                         col2.to(torch.int32)], dim=1)
+
+
+def probe_walk_full_multi(packed: torch.Tensor, st: StackedTables, *,
+                          bucket: int, c_max: int,
+                          walk: str = "fused") -> torch.Tensor:
+    """One launch of packed reads against every stacked library -> (L, B, 3)
+    int32: the B rows broadcast to L*B rows through one
+    :func:`probe_walk_full` pass."""
+    L, B = st.n_libraries, packed.shape[0]
+    out = probe_walk_full(packed.repeat(L, 1), st, bucket=bucket,
+                          c_max=c_max, walk=walk,
+                          lib=library_rows(L, B, packed.device))
+    return out.reshape(L, B, 3)
 
 
 def unpack_full_packed(packed: np.ndarray) -> dict:

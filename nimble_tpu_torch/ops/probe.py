@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from nimble_tpu_torch.ops.device_tables import IndexTables
+from nimble_tpu_torch.ops.device_tables import IndexTables, take
 from nimble_tpu_torch.ops.hashing import (
     as_int32_bits,
     hash_kmer,
@@ -24,8 +24,9 @@ from nimble_tpu_torch.ops.hashing import (
 
 
 def probe_bucketed(reads: torch.Tensor, read_lens: torch.Tensor,
-                   t: IndexTables, *, p_limit: int):
+                   t: IndexTables, *, p_limit: int, lib=None):
     """Anchor probe of (B, Lmax) 2-bit codes; positions [0, p_limit) only.
+    With stacked tables, ``lib`` (B,) int64 names each read's library.
 
     Returns (has_anchor (B,) bool, anchor, bucket_sel, lane_sel (B,) int64,
     fp_bad (B,) bool).
@@ -49,7 +50,7 @@ def probe_bucketed(reads: torch.Tensor, read_lens: torch.Tensor,
     hop_rec = torch.zeros((B, P), dtype=torch.int64, device=dev)
     for hop in range(t.max_probe):
         bidx = (h + hop) & t.bucket_mask
-        bfps = t.bkey_fp[bidx]                                # (B, P, W)
+        bfps = take(t.bkey_fp, lib, bidx)                     # (B, P, W)
         enc = torch.where(bfps == fp[:, :, None], lane_prio, 0).amax(dim=2)
         new = (lane_m == 0) & (enc > 0)
         lane_m = torch.where(new, enc, lane_m)
@@ -64,15 +65,16 @@ def probe_bucketed(reads: torch.Tensor, read_lens: torch.Tensor,
     anchor = torch.where(has_anchor, P - (m >> 8), 0)
     lane_sel = torch.where(has_anchor, W - (m & 0xFF), 0)
 
-    def take(a):
+    def at_anchor(a):
         return a.gather(1, anchor[:, None])[:, 0]
 
     bucket_sel = torch.where(
-        has_anchor, (take(h) + take(hop_rec)) & t.bucket_mask, 0
+        has_anchor, (at_anchor(h) + at_anchor(hop_rec)) & t.bucket_mask, 0
     )
-    lo_sel = t.bkey_lo[bucket_sel, lane_sel]
-    hi_sel = t.bkey_hi[bucket_sel, lane_sel]
+    lo_sel = take(t.bkey_lo, lib, bucket_sel, lane_sel)
+    hi_sel = take(t.bkey_hi, lib, bucket_sel, lane_sel)
     fp_bad = has_anchor & (
-        (lo_sel != as_int32_bits(take(lo))) | (hi_sel != as_int32_bits(take(hi)))
+        (lo_sel != as_int32_bits(at_anchor(lo)))
+        | (hi_sel != as_int32_bits(at_anchor(hi)))
     )
     return has_anchor, anchor, bucket_sel, lane_sel, fp_bad

@@ -27,7 +27,7 @@ import threading
 import torch
 
 from nimble_tpu_torch.ops import _build
-from nimble_tpu_torch.ops.device_tables import IndexTables
+from nimble_tpu_torch.ops.device_tables import IndexTables, take
 from nimble_tpu_torch.ops.double_walk import double_walk
 
 M32 = 0xFFFFFFFF
@@ -35,17 +35,20 @@ MAX_CANDIDATES = 32  # candidate lanes of one read share one warp
 
 
 def gather_span_words(ref_codes_packed: torch.Tensor, starts: torch.Tensor,
-                      NW: int):
+                      NW: int, lib=None):
     """NW consecutive packed words per span start (any shape ``S``).
 
     Returns (words ``S + (NW,)`` int32 bits, phase ``S`` int32): the span's
     2-bit codes sit at bit offsets ``2 * (phase + p)`` of its window.  The
-    window index is clamped like the JAX sliding-window gather.
+    window index is clamped like the JAX sliding-window gather.  With
+    stacked ``(L, n_words)`` words, ``lib`` (``S`` or a leading prefix of
+    it) names each span's library and the clamp is to the padded common
+    extent, as under the JAX package's vmap over libraries.
     """
-    n_words = ref_codes_packed.shape[0]
+    n_words = ref_codes_packed.shape[-1]
     w0 = (starts >> 4).clamp(0, n_words - NW)
     idx = w0[..., None] + torch.arange(NW, device=starts.device)
-    return ref_codes_packed[idx], (starts & 15).to(torch.int32)
+    return take(ref_codes_packed, lib, idx), (starts & 15).to(torch.int32)
 
 
 def fused_span_walk_plain(reads, read_lens, anchor, base_off, r_len, live0,
@@ -209,7 +212,7 @@ def unpack_span(words: torch.Tensor, phase: torch.Tensor, L: int):
 
 
 def rel_walk_masks(reads, read_lens, anchor, rows, offs, live0,
-                   t: IndexTables, *, l_steps: int) -> dict:
+                   t: IndexTables, *, l_steps: int, lib=None) -> dict:
     """Arguments of :func:`double_walk` for (B, C) candidates: the
     relative-coordinate glue of ``engine_fast._span_walk_rel`` (the
     ``use_pallas=True`` branch).
@@ -219,7 +222,7 @@ def rel_walk_masks(reads, read_lens, anchor, rows, offs, live0,
     take columns ``l_steps + k ..``, the left masks the first ``l_steps``
     columns reversed (step j = 1..l_steps compares read position
     ``anchor - j``).  With ``l_steps == 0`` the left walk is one step of
-    all-zero masks.
+    all-zero masks.  ``lib`` (B,): each read's library in stacked tables.
     """
     B, Lmax = reads.shape
     C = rows.shape[1]
@@ -234,13 +237,15 @@ def rel_walk_masks(reads, read_lens, anchor, rows, offs, live0,
     x_w = torch.arange(W, device=dev)
     read_span = reads_padded.gather(1, anchor[:, None] + x_w)     # (B, W)
 
-    starts = t.row_starts[rows].to(torch.int64) + offs - l_steps + t.ref_pad
+    starts = take(t.row_starts, lib, rows).to(torch.int64) + offs - l_steps \
+        + t.ref_pad
     words, phase = gather_span_words(
-        t.ref_codes_packed, starts.reshape(-1), (W + 15) // 16 + 1)
+        t.ref_codes_packed, starts.reshape(-1), (W + 15) // 16 + 1,
+        None if lib is None else lib[:, None].expand(B, C).reshape(-1))
     ref_span = unpack_span(words, phase, W).reshape(B, C, W)
     match_full = ref_span == read_span[:, None, :]              # (B, C, W)
 
-    r_len = t.row_lengths[rows].to(torch.int64)
+    r_len = take(t.row_lengths, lib, rows).to(torch.int64)
     t_idx = torch.arange(T, device=dev)
     f_alive = (offs[:, :, None] + k + t_idx) < r_len[:, :, None]
     f_match = match_full[:, :, l_steps + k:] & f_alive
@@ -264,32 +269,34 @@ def rel_walk_masks(reads, read_lens, anchor, rows, offs, live0,
 
 
 def span_walk_rel(reads, read_lens, anchor, rows, offs, live0,
-                  t: IndexTables, *, l_steps: int):
+                  t: IndexTables, *, l_steps: int, lib=None):
     """``engine_fast._span_walk_rel(use_pallas=True)``: the masks of
     :func:`rel_walk_masks` through :func:`double_walk`.  Returns (live
     (B, C) bool, score (B,) int32, mm (B,) int32)."""
     live, score, mm = double_walk(**rel_walk_masks(
-        reads, read_lens, anchor, rows, offs, live0, t, l_steps=l_steps))
+        reads, read_lens, anchor, rows, offs, live0, t, l_steps=l_steps,
+        lib=lib))
     return live != 0, score, mm
 
 
 def walk_args(reads, read_lens, anchor, rows, offs, live0,
-              t: IndexTables) -> dict:
+              t: IndexTables, lib=None) -> dict:
     """Arguments of :func:`fused_span_walk` for (B, C) candidates given as
     row ids and anchor offsets in those rows: the torch glue of
-    ``_span_walk_abs_fused`` (the word gather stays a torch op)."""
+    ``_span_walk_abs_fused`` (the word gather stays a torch op).  ``lib``
+    (B,): each read's library in stacked tables."""
     Lmax = reads.shape[1]
-    starts = t.row_starts[rows].to(torch.int64) + offs - anchor[:, None] \
-        + t.ref_pad
+    starts = take(t.row_starts, lib, rows).to(torch.int64) + offs \
+        - anchor[:, None] + t.ref_pad
     words, phase = gather_span_words(
-        t.ref_codes_packed, starts, (Lmax + 15) // 16 + 1)
+        t.ref_codes_packed, starts, (Lmax + 15) // 16 + 1, lib)
     i32 = torch.int32
     return dict(
         reads=reads.to(i32).contiguous(),
         read_lens=read_lens.to(i32).contiguous(),
         anchor=anchor.to(i32).contiguous(),
         base_off=(offs - anchor[:, None]).to(i32).contiguous(),
-        r_len=t.row_lengths[rows].contiguous(),
+        r_len=take(t.row_lengths, lib, rows).contiguous(),
         live0=live0.contiguous(),
         words=words.contiguous(),
         phase=phase.contiguous(),

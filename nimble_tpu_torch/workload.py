@@ -7,6 +7,9 @@ sampled as fragments of the doubled rows, ~20% with one substitution and
 FASTQ file(s) that the CLI reads, so a run exercises the whole path from
 parsing to the TSV.  ``write_bam_workload`` writes the same library with a
 synthetic 10x BAM over it, the recipe of ``bench.py --bam``.
+``write_multi_workload`` / ``write_multi_bam_workload`` write several
+libraries (library i from seed ``seed + i``) and one input drawn from all of
+them, the recipe of ``bench.py --libraries``.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import json
 import os
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -28,6 +31,12 @@ _BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
 class Workload:
     library: str                 # library JSON path
     inputs: List[str]            # the CLI's -i files: R1 (and R2), or the BAM
+
+
+@dataclass(frozen=True)
+class MultiWorkload:
+    libraries: List[str]         # one library JSON path per library
+    inputs: List[str]            # the CLI's -i files
 
 
 def library_json(features: List[str]) -> list:
@@ -106,14 +115,18 @@ def generate(*, n_features=50, feat_len=500, read_len=90, n_reads=1 << 16,
     return feats, doubled, r1, r2
 
 
+def _write_library(path: str, feats: List[str]) -> str:
+    with open(path, "w") as f:
+        json.dump(library_json(feats), f)
+    return path
+
+
 def write_workload(out_dir: str, **kw) -> Workload:
     """Write :func:`generate`'s library JSON and FASTQ file(s) (same
     keyword arguments) into ``out_dir``."""
     feats, _doubled, r1, r2 = generate(**kw)
     os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, "library.json")
-    with open(lib, "w") as f:
-        json.dump(library_json(feats), f)
+    lib = _write_library(os.path.join(out_dir, "library.json"), feats)
     fastqs = [os.path.join(out_dir, "reads_R1.fastq")]
     write_fastq(fastqs[0], r1)
     if r2 is not None:
@@ -130,11 +143,55 @@ def write_bam_workload(out_dir: str, *, n_features=50, feat_len=500,
     one substitution (``bench.py --bam``'s recipe; 8 records per group)."""
     feats = _features(np.random.default_rng(seed), n_features, feat_len)
     os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, "library.json")
-    with open(lib, "w") as f:
-        json.dump(library_json(feats), f)
+    lib = _write_library(os.path.join(out_dir, "library.json"), feats)
     bam = os.path.join(out_dir, "reads.bam")
     make_synthetic_bam(bam, feats, n_groups=n_groups, pairs_per_group=4,
                        read_len=90, seed=seed + 1, mutate_every=5,
                        stream=True)
     return Workload(library=lib, inputs=[bam])
+
+
+def write_multi_workload(out_dir: str, *,
+                         libraries: Sequence[Tuple[int, int]],
+                         read_len=90, n_reads=1 << 16,
+                         seed=0) -> MultiWorkload:
+    """Write one library JSON per ``(n_features, feat_len)`` of
+    ``libraries`` (library i from :func:`generate` with seed ``seed + i``)
+    and one FASTQ of ``n_reads // L`` reads from each library in turn:
+    ``bench.py --libraries``'s mixed workload, each library's reads the
+    first of the ``n_reads`` its generator draws."""
+    os.makedirs(out_dir, exist_ok=True)
+    per = n_reads // len(libraries)
+    paths, mats = [], []
+    for i, (n_features, feat_len) in enumerate(libraries):
+        feats, _doubled, r1, _ = generate(
+            n_features=n_features, feat_len=feat_len, read_len=read_len,
+            n_reads=n_reads, seed=seed + i)
+        paths.append(_write_library(
+            os.path.join(out_dir, f"library{i}.json"), feats))
+        mats.append(r1[:per])
+    fastq = os.path.join(out_dir, "reads_R1.fastq")
+    write_fastq(fastq, np.concatenate(mats))
+    return MultiWorkload(libraries=paths, inputs=[fastq])
+
+
+def write_multi_bam_workload(out_dir: str, *,
+                             libraries: Sequence[Tuple[int, int]],
+                             n_groups=16384, seed=0) -> MultiWorkload:
+    """Write one library JSON per ``(n_features, feat_len)`` (library i's
+    features from seed ``seed + i``, as :func:`write_bam_workload` draws
+    them) and a synthetic 10x BAM (``write_bam_workload``'s recipe, seed
+    ``seed + L``) whose fragments come from all libraries' features."""
+    os.makedirs(out_dir, exist_ok=True)
+    paths, all_feats = [], []
+    for i, (n_features, feat_len) in enumerate(libraries):
+        feats = _features(np.random.default_rng(seed + i), n_features,
+                          feat_len)
+        paths.append(_write_library(
+            os.path.join(out_dir, f"library{i}.json"), feats))
+        all_feats += feats
+    bam = os.path.join(out_dir, "reads.bam")
+    make_synthetic_bam(bam, all_feats, n_groups=n_groups, pairs_per_group=4,
+                       read_len=90, seed=seed + len(libraries),
+                       mutate_every=5, stream=True)
+    return MultiWorkload(libraries=paths, inputs=[bam])

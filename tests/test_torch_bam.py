@@ -5,8 +5,10 @@
 quirk modes and both walk modes, and the same bytes as ``process_fast``
 driven by ``DeviceAlignEngine`` on a synthetic 10x BAM whose reads repeat
 and whose quality tails are trimmed.  The port's CLI runs the BAM branch
-with one and with three consumer threads, refuses what it does not port
-(more than one library, no native host library) and leaves the
+with one and with three consumer threads, with several libraries in one
+call (one stacked pass when their trim settings agree, per-library launches
+when they differ; each library's TSV equal to its single-library run),
+refuses BAM input without the native host library and leaves the
 interpreter's switch interval as it found it.  Outputs are compared as
 decompressed bytes: exact equality.
 """
@@ -39,7 +41,11 @@ from nimble_tpu.pipeline.bam_fast import process_fast
 from nimble_tpu.utils.dna import revcomp
 from nimble_tpu_torch.cli import main
 from nimble_tpu_torch.models.aligner import TorchAlignEngine
-from nimble_tpu_torch.workload import write_bam_workload
+from nimble_tpu_torch.models import multi_aligner
+from nimble_tpu_torch.workload import (
+    write_bam_workload,
+    write_multi_bam_workload,
+)
 
 from conftest import library_path
 from test_golden_forensic import BAM as GOLDEN_BAM
@@ -185,17 +191,45 @@ def test_cli_bam_restores_switch_interval(tmp_path):
         sys.setswitchinterval(before)
 
 
-@pytest.mark.parametrize("case", ["two_libraries", "no_native"])
+@pytest.mark.parametrize("trim", [None, "40:0.9,30:0.5,40:0.9"])
+def test_cli_bam_two_libraries(tmp_path, monkeypatch, trim):
+    """Three libraries over one BAM in one CLI call, equal to each
+    library's single-library run: uniform trim takes one stacked pass per
+    batch, per-library trim takes per-engine launches."""
+    wl = write_multi_bam_workload(str(tmp_path / "wl"),
+                                  libraries=[(5, 300), (4, 250), (6, 200)],
+                                  n_groups=700, seed=8)
+    stacked = []
+    real = multi_aligner.probe_walk_full_multi
+    monkeypatch.setattr(multi_aligner, "probe_walk_full_multi",
+                        lambda packed, **kw: stacked.append(1)
+                        or real(packed, **kw))
+    trims = ["40:0.9", "30:0.5", "40:0.9"] if trim else [None] * 3
+    outs = [str(tmp_path / f"m{i}.tsv.gz") for i in range(3)]
+    argv = [a for lib, out in zip(wl.libraries, outs)
+            for a in ("-r", lib, "-o", out)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = main([*argv, "-i", wl.inputs[0], "--device", "cpu", "-c", "4",
+                   *(["-t", trim] if trim else [])])
+    assert rc == 0
+    assert bool(stacked) == (trim is None)
+    for i, (lib, out) in enumerate(zip(wl.libraries, outs)):
+        single = str(tmp_path / f"s{i}.tsv.gz")
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert main(["-r", lib, "-i", wl.inputs[0], "-o", single,
+                         "--device", "cpu", "-c", "4",
+                         *(["-t", trims[i]] if trim else [])]) == 0
+        with gzip.open(out, "rb") as f, gzip.open(single, "rb") as g:
+            got = f.read()
+            assert got == g.read()
+        assert got.count(b"\n") > 600
+
+
+@pytest.mark.parametrize("case", ["no_native"])
 def test_cli_bam_refusals(tmp_path, monkeypatch, case):
     args = ["-r", library_path("basic.json"), "-i", GOLDEN_BAM, "-o",
             str(tmp_path / "a.tsv.gz"), "--device", "cpu"]
-    if case == "two_libraries":
-        args += ["-r", library_path("mismatch.json"), "-o",
-                 str(tmp_path / "b.tsv.gz")]
-        match = "more than one library"
-    else:
-        monkeypatch.setattr(native, "available", lambda: False)
-        match = "native host library"
-    with pytest.raises(SystemExit, match=match):
+    monkeypatch.setattr(native, "available", lambda: False)
+    with pytest.raises(SystemExit, match="native host library"):
         main(args)
     assert not (tmp_path / "a.tsv.gz").exists()
