@@ -27,9 +27,12 @@ nothing falls back to the CPU):
    input read once and each output written once, over HBM_BYTES_PER_S, or
    its operations over OPS_PER_S, whichever is larger); the gathers also
    against the one torch call that computes them (``library_ms``:
-   ``index_select`` for take, ``torch.gather`` for taa and lane), and
+   ``index_select`` for take, ``torch.gather`` for taa and lane),
    fused_span_walk also on its first 1,024 reads
-   (``small_batch_device_ms``: the launch's latency);
+   (``small_batch_device_ms``: the launch's latency), and double_walk and
+   gather_lane also with the L2 cache flushed before every call
+   (``cold_device_ms``: a 128 MiB buffer is written between launches; the
+   warm time reads inputs that fit in the 50 MB L2);
 3. gather: the port's gather probe (``nimble_tpu_torch.probe_gather``, the
    entry point of the three gather kernels) end to end on the card; every
    ``match=`` must be true;
@@ -118,6 +121,7 @@ GATHER_SHAPES = ((4096, 8, 65536), (1024, 8, 65536))  # (N, W, M)
 # integer operations)
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+L2_FLUSH_BYTES = 128 << 20  # written between launches for a cold L2
 REPLACES = {
     "fused_span_walk": "nimble_tpu/ops/pallas_fused.py:130",
     "double_walk": "nimble_tpu/ops/pallas_walk.py:75",
@@ -171,6 +175,32 @@ def device_ms(fn, iters: int, kernel: str = "") -> float:
     if total_us <= 0:
         raise AssertionError(f"profiler saw no CUDA kernel {kernel!r}")
     return total_us / 1e3 / iters
+
+
+def cold_device_ms(fn, iters: int, kernel: str) -> float:
+    """:func:`device_ms` of the kernel named ``kernel`` with the L2 cache
+    cold: before each call a buffer of L2_FLUSH_BYTES, well over the
+    card's 50 MB of L2, is written (its fill kernel is not summed)."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
+                        device="cuda")
+
+    def call():
+        flush.fill_(1)
+        return fn()
+
+    return device_ms(call, iters, kernel)
+
+
+def _cold(row: dict, fn, kernel: str) -> str:
+    """Adds the cold device time and its share of the bound to ``row``;
+    returns its text for the kernel's line."""
+    row["cold_device_ms"] = cold_device_ms(fn, 50, kernel)
+    row["cold_bound_share"] = row["bound_ms"] / row["cold_device_ms"]
+    return (f"; L2 cold: device time {row['cold_device_ms']:.4f} ms, at "
+            f"{row['cold_bound_share']:.3f} of the bound (warm "
+            f"{row['bound_share']:.3f})")
 
 
 def _device_us(prof, name: str = "") -> float:
@@ -397,6 +427,8 @@ def phase_kernel(seed: int):
                                 "double_walk_kernel"))
             row.update(_bound(*_double_walk_work(masks), row["device_ms"]))
             row["library_ms"] = None
+            cold = _cold(row, lambda: double_walk(**masks),
+                         "double_walk_kernel")
             mb = sum(m.numel() for m in masks.values()) / 2**20
             print(f"[kernel] double_walk B={KERNEL_BATCH} C=8 Lmax={bucket} "
                   f"T={T} Tl={Tl} ({mb:.1f} MiB of masks): bit-equal to "
@@ -406,7 +438,7 @@ def phase_kernel(seed: int):
                   f"events): kernel {row['ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.3f} ms; bound {row['bound_ms']:.4f} ms "
                   f"by {row['bound_by']}, device time at "
-                  f"{row['bound_share']:.3f} of it")
+                  f"{row['bound_share']:.3f} of it{cold}")
             rows["double_walk"].append(row)
     return rows
 
@@ -457,15 +489,19 @@ def phase_gather_kernels(seed: int):
                                      f"{err}")
             n_bytes = a.numel() * 4 + b.numel() * 4 + got.numel() * 4
             row = {"N": N, "W": W, "M": M, "max_abs_err": err,
-                   "smem_kib": N * W * 4 / 1024,
+                   # staged per block: the table, or one row of it (lane)
+                   "smem_kib": N * (1 if name == "gather_lane" else W) * 4
+                   / 1024,
                    **_timings(lambda: fn(a, b), lambda: plain(a, b),
                               name + "_kernel"),
                    "library_ms": cuda_ms(library, 200),
                    "library_device_ms": device_ms(library, 50)}
             row.update(_bound(n_bytes, 0, row["device_ms"]))
+            cold = (_cold(row, lambda: fn(a, b), name + "_kernel")
+                    if name == "gather_lane" else "")
             rows[name].append(row)
             print(f"[kernel] {name} table ({N}, {W}) ({row['smem_kib']:.0f} "
-                  f"KiB of shared memory), M={M}: bit-equal to plain and to "
+                  f"KiB of shared memory a block), M={M}: bit-equal to plain and to "
                   f"the library call; device time (profiler): kernel "
                   f"{row['device_ms']:.4f} ms, plain "
                   f"{row['plain_device_ms']:.4f} ms, library "
@@ -474,7 +510,7 @@ def phase_gather_kernels(seed: int):
                   f"{row['plain_ms']:.4f} ms, library "
                   f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.4f} "
                   f"ms by bytes ({n_bytes} bytes), device time at "
-                  f"{row['bound_share']:.3f} of it")
+                  f"{row['bound_share']:.3f} of it{cold}")
     return rows
 
 
@@ -1013,7 +1049,8 @@ def main(argv=None) -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "device_ms", "plain_device_ms", "library_device_ms",
                 "bound_bytes", "bound_ops", "bound_share",
-                "small_batch_device_ms")},
+                "small_batch_device_ms", "cold_device_ms",
+                "cold_bound_share")},
             "shape": shape,
         })
     print(json.dumps({"kernels": lines}))

@@ -11,6 +11,10 @@ live & match``, ``act = active & any(la)``; ``live`` becomes ``lm`` when
 ``act & any(lm)``, else ``la`` when ``act``, else stays; ``score`` counts
 the steps with ``act & any(lm)``, ``mm`` those with ``act & !any(lm)``.
 The forward walk runs first, then the left walk, with ``live`` carried.
+The masks are int8 0/1 values (the Pallas kernel multiplies them; the
+CUDA kernel reads bit 0 of each byte).  On the card the wrapper picks the
+kernel's tile (:func:`tile_reads`): up to 32 reads whose masks the kernel
+stages in shared memory, within ``SMEM_TARGET``.
 """
 
 from __future__ import annotations
@@ -22,7 +26,12 @@ import torch
 
 from nimble_tpu_torch.ops import _build
 
-MAX_CANDIDATES = 32  # candidate lanes of one read share one warp
+MAX_CANDIDATES = 32  # a read's live candidates are one 32-bit word
+MAX_TILE = 32  # reads per tile: the kernel's walkers are one warp
+# shared memory a launch aims at (several blocks on each SM); one read is
+# always allowed up to the card's opt-in maximum
+SMEM_TARGET = 80 * 1024
+_SLACK = 48  # bytes per staged range: 16-byte envelope and funnel over-read
 
 
 def double_walk_plain(f_alive, f_match, f_active, l_alive, l_match, l_active,
@@ -61,8 +70,10 @@ def _kernel_lib():
         if _lib is None:
             lib = _build.load_library("double_walk")
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.nimble_double_walk.argtypes = [vp] * 10 + [ci] * 4 + [vp]
+            lib.nimble_double_walk.argtypes = [vp] * 10 + [ci] * 5 + [vp]
             lib.nimble_double_walk.restype = ci
+            lib.nimble_double_walk_smem.argtypes = [ci] * 4
+            lib.nimble_double_walk_smem.restype = ctypes.c_int64
             lib.nimble_double_walk_error_string.argtypes = [ci]
             lib.nimble_double_walk_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -101,6 +112,41 @@ def _check_args(f_alive, f_match, f_active, l_alive, l_match, l_active,
     return B, C, T, Tl
 
 
+def smem_bytes(R: int, C: int, T: int, Tl: int) -> int:
+    """Shared memory of one kernel launch with tiles of R reads: two
+    mbarriers; two staging buffers of one walk's alive and match (R*C*S
+    bytes each) and active (R*S) masks, S = max(T, Tl); and two sets of
+    packed words, ceil(C/8) byte planes of alive and of match, 4 bytes per
+    read and 4 steps at an odd read stride.  Mirrors ``Layout`` in
+    ``csrc/double_walk.cu``."""
+    S = max(T, Tl)
+    odd_g = (S + 3) // 4 | 1
+    planes = (C + 7) // 8
+
+    def r16(n):
+        return (n + 15) // 16 * 16
+
+    buffer = 2 * r16(R * C * S + _SLACK) + r16(R * S + _SLACK)
+    return 16 + 2 * buffer + 2 * 2 * planes * R * odd_g * 4
+
+
+def tile_reads(B: int, C: int, T: int, Tl: int, optin: int) -> int:
+    """Reads per kernel tile: the largest R <= min(B, MAX_TILE) whose
+    launch fits SMEM_TARGET, and at least 1.  Raises ``ValueError`` when a
+    tile of one read needs more than ``optin`` bytes, the shared memory a
+    block can opt in to."""
+    need = smem_bytes(1, C, T, Tl)
+    if need > optin:
+        raise ValueError(
+            f"double_walk: one read's walk (C={C}, T={T}, Tl={Tl}) needs "
+            f"{need} bytes of shared memory, over the {optin} a block can "
+            "opt in to on this card")
+    R = max(1, min(B, MAX_TILE))
+    while R > 1 and smem_bytes(R, C, T, Tl) > SMEM_TARGET:
+        R -= 1
+    return R
+
+
 def double_walk(f_alive, f_match, f_active, l_alive, l_match, l_active,
                 live0):
     """Forward then left walk over int8 0/1 masks.
@@ -120,6 +166,8 @@ def double_walk(f_alive, f_match, f_active, l_alive, l_match, l_active,
         return double_walk_plain(*args)
     if dev.type != "cuda":
         raise ValueError(f"double_walk: unsupported device {dev}")
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    R = tile_reads(B, C, T, Tl, optin)
     lib = _kernel_lib()
     live = torch.empty((B, C), dtype=torch.int8, device=dev)
     score = torch.empty(B, dtype=torch.int32, device=dev)
@@ -129,7 +177,7 @@ def double_walk(f_alive, f_match, f_active, l_alive, l_match, l_active,
         err = lib.nimble_double_walk(
             *(a.data_ptr() for a in args),
             live.data_ptr(), score.data_ptr(), mm.data_ptr(),
-            B, C, T, Tl, stream,
+            B, C, T, Tl, R, stream,
         )
     if err:
         msg = lib.nimble_double_walk_error_string(err).decode()

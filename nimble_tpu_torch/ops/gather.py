@@ -1,4 +1,4 @@
-"""Row gathers from a table held in shared memory: the gather-probe kernels.
+"""Row gathers from a table staged in shared memory: the gather-probe kernels.
 
 Counterparts of the three Pallas kernels of ``scripts/probe_mosaic_gather.py``
 (``pallas_take``, ``pallas_taa``, ``pallas_lane``), which ask whether a row
@@ -14,8 +14,11 @@ launches, and take the plain torch version for CPU tensors:
 
 Values are int32 (uint32 bit patterns); indices are int32 in [0, N).  The
 kernels clamp indices into the table, the plain versions do not: in-range
-indices are the contract, as in the probe.  A table larger than the shared
-memory a block can opt in to is refused with ``ValueError``.
+indices are the contract, as in the probe.  ``gather_take`` and
+``gather_taa`` stage the whole table in each block, and refuse with
+``ValueError`` a table larger than the shared memory a block can opt in to;
+``gather_lane`` stages one table row per block, and refuses only a row
+(N * 4 bytes) over that limit.
 """
 
 from __future__ import annotations
@@ -85,7 +88,8 @@ def _check(name, table, index, table_shape, index_shape):
                          f"{table.device}")
 
 
-def _launch(wrapper, entry: str, table, index, out, N: int, W: int, M: int):
+def _launch(wrapper, entry: str, table, index, out, N: int, W: int, M: int,
+            staged: str):
     dev = table.device
     if dev.type != "cuda":
         raise ValueError(f"{wrapper.__name__}: unsupported device {dev}")
@@ -98,7 +102,7 @@ def _launch(wrapper, entry: str, table, index, out, N: int, W: int, M: int):
                                   out.data_ptr(), N, W, M, stream)
         if err == _ERR_TABLE_TOO_LARGE:
             raise ValueError(
-                f"{wrapper.__name__}: a table of {N * W * 4} bytes exceeds "
+                f"{wrapper.__name__}: {staged} exceeds "
                 f"the {lib.nimble_gather_smem_optin()} bytes of shared "
                 "memory a block can opt in to on this card")
     if err:
@@ -121,7 +125,8 @@ def gather_take(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return gather_take_plain(tab, idx)
     (N, W), M = tab.shape, idx.shape[0]
     out = torch.empty((M, W), dtype=torch.int32, device=tab.device)
-    return _launch(gather_take, "nimble_gather_take", tab, idx, out, N, W, M)
+    return _launch(gather_take, "nimble_gather_take", tab, idx, out, N, W, M,
+                   f"a table of {N * W * 4} bytes")
 
 
 def gather_taa(tab: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
@@ -137,7 +142,8 @@ def gather_taa(tab: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
         return gather_taa_plain(tab, idx2)
     (N, W), M = tab.shape, idx2.shape[0]
     out = torch.empty((M, W), dtype=torch.int32, device=tab.device)
-    return _launch(gather_taa, "nimble_gather_taa", tab, idx2, out, N, W, M)
+    return _launch(gather_taa, "nimble_gather_taa", tab, idx2, out, N, W, M,
+                   f"a table of {N * W * 4} bytes")
 
 
 def gather_lane(tab_t: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
@@ -154,7 +160,7 @@ def gather_lane(tab_t: torch.Tensor, idx2: torch.Tensor) -> torch.Tensor:
     (W, N), M = tab_t.shape, idx2.shape[1]
     out = torch.empty((W, M), dtype=torch.int32, device=tab_t.device)
     return _launch(gather_lane, "nimble_gather_lane", tab_t, idx2, out, N, W,
-                   M)
+                   M, f"a table row of {N * 4} bytes")
 
 
 gather_take.launches = 0

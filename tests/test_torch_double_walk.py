@@ -8,8 +8,12 @@ one-step all-zero left walk.  ``span_walk_rel`` (mask glue + double walk)
 must reproduce ``engine_fast._span_walk_rel(use_pallas=True)`` and, with the
 main path's ``l_steps``, the fused walk; the compact pass with
 ``walk="double"`` must equal the JAX engine's ``use_pallas=True`` pass.
-Every output is an integer or a bool: exact equality.  The CUDA cases hold
-the kernel to the plain version where a card is present; they need no jax
+Every output is an integer or a bool: exact equality.  The wrapper's tile
+plan (reads per tile against the shared memory) is checked on the CPU.
+The CUDA cases hold the kernel to the plain version where a card is present,
+at the edges of its tiling and staging (step counts around its 4-step
+words, 1 to 32 candidates, batches that are not a multiple of the tile,
+masks that are contiguous slices not aligned to 16 bytes); they need no jax
 (``python -m pytest --noconftest -m cuda tests/test_torch_double_walk.py``
 on a GPU machine).
 """
@@ -132,6 +136,57 @@ def test_wrapper_rejects_bad_arguments():
     with pytest.raises(ValueError, match="candidate count"):
         big = _torch(_random_masks(np.random.default_rng(7), 128, 33, 4, 4))
         dw.double_walk(**big)
+
+
+@pytest.mark.parametrize("B,C,T,Tl", [
+    (8192, 8, 62, 62), (8192, 8, 66, 66), (8192, 8, 62, 1), (1, 1, 1, 1),
+    (33, 32, 130, 130), (8193, 16, 17, 63), (5, 8, 0, 9), (8192, 32, 1000, 1),
+])
+def test_tile_plan_fits_the_shared_memory(B, C, T, Tl):
+    """The tile is the largest up to min(B, MAX_TILE) reads that fits the
+    target, or one read; the layout never shrinks as a dimension grows."""
+    optin = 232448  # an H100's opt-in maximum
+    R = dw.tile_reads(B, C, T, Tl, optin)
+    assert 1 <= R <= min(B, dw.MAX_TILE)
+    assert R == 1 or dw.smem_bytes(R, C, T, Tl) <= dw.SMEM_TARGET
+    if R < min(B, dw.MAX_TILE):
+        assert dw.smem_bytes(R + 1, C, T, Tl) > dw.SMEM_TARGET
+    assert dw.smem_bytes(R, C, T, Tl) <= optin
+    base = dw.smem_bytes(R, C, T, Tl)
+    for grown in ((R + 1, C, T, Tl), (R, C + 1, T, Tl), (R, C, T + 5, Tl),
+                  (R, C, T, Tl + 5 + max(T, Tl))):
+        assert dw.smem_bytes(*grown) >= base
+    # two staging buffers of one walk and two sets of packed words
+    S = max(T, Tl)
+    assert base >= 2 * R * (2 * C + 1) * S + 2 * 2 * R * S
+
+
+def test_tile_plan_refuses_a_read_over_the_opt_in_maximum():
+    assert dw.tile_reads(64, 32, 1500, 62, 232448) == 1
+    with pytest.raises(ValueError, match="opt in"):
+        dw.tile_reads(64, 32, 1800, 62, 232448)
+    with pytest.raises(ValueError, match="opt in"):
+        dw.tile_reads(64, 8, 62, 62, 1024)
+
+
+def _sliced(masks, device):
+    """The masks as contiguous slices x[1:] of one-read-longer tensors: the
+    data starts C*T (or T, or C) bytes into its storage, not 16-aligned."""
+    out = {}
+    for k, v in masks.items():
+        pad = np.concatenate([np.ones_like(v[:1]), v])
+        out[k] = torch.from_numpy(pad).to(device)[1:]
+        assert out[k].is_contiguous() and out[k].storage_offset() > 0
+    return out
+
+
+def test_wrapper_on_cpu_takes_sliced_masks():
+    rng = np.random.default_rng(8)
+    masks = _random_masks(rng, 70, 5, 17, 9)
+    got = dw.double_walk(**_sliced(masks, "cpu"))
+    want = dw.double_walk_plain(**_torch(masks))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def _tables(case, ref_pad):
@@ -280,6 +335,55 @@ def test_cuda_kernel_matches_plain(cuda_device, seed, B, C, T, Tl):
     for g, w in zip(got, want):
         assert g.device.type == "cuda"
         assert torch.equal(g, w)
+
+
+EDGE_CASES = (  # (seed, B, C, T, Tl)
+    [(20 + i, 300, 8, T, T) for i, T in enumerate(
+        (1, 15, 16, 17, 63, 64, 65, 130))]
+    + [(30, 300, 8, 1, 130), (31, 300, 8, 130, 1), (32, 300, 8, 0, 17),
+       (33, 300, 8, 65, 0)]
+    + [(40 + i, 257, C, 40, 23) for i, C in enumerate((1, 5, 8, 16, 32))]
+    + [(50 + i, B, 8, 62, 62) for i, B in enumerate((1, 31, 33, 8193))]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,B,C,T,Tl", EDGE_CASES)
+def test_cuda_kernel_edges_match_plain(cuda_device, seed, B, C, T, Tl):
+    """Step counts around the kernel's 4-step words and above 64, 0-step
+    walks, 1 to 32 candidates (1 to 4 groups of 8), batches off the tile."""
+    masks = _torch(_random_masks(np.random.default_rng(seed), B, C, T, Tl),
+                   cuda_device)
+    before = dw.double_walk.launches
+    got = dw.double_walk(**masks)
+    torch.cuda.synchronize()
+    assert dw.double_walk.launches == before + 1
+    for g, w in zip(got, dw.double_walk_plain(**masks)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,T,Tl", [(8192, 8, 62, 62), (300, 5, 17, 9),
+                                      (33, 32, 63, 1)])
+def test_cuda_kernel_on_misaligned_slices(cuda_device, B, C, T, Tl):
+    """Masks that are contiguous slices x[1:], their data not 16-byte
+    aligned: the kernel stages each range over its aligned envelope."""
+    masks = _random_masks(np.random.default_rng(B + C), B, C, T, Tl)
+    sliced = _sliced(masks, cuda_device)
+    assert any(v.data_ptr() % 16 for v in sliced.values())
+    got = dw.double_walk(**sliced)
+    torch.cuda.synchronize()
+    want = dw.double_walk_plain(**_torch(masks, cuda_device))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_cuda_layout_matches_the_wrapper_mirror(cuda_device):
+    lib = dw._kernel_lib()
+    for R, C, T, Tl in ((24, 8, 62, 62), (1, 32, 130, 1), (7, 5, 0, 17)):
+        assert lib.nimble_double_walk_smem(R, C, T, Tl) == dw.smem_bytes(
+            R, C, T, Tl)
 
 
 @pytest.mark.cuda

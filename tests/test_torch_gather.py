@@ -13,7 +13,10 @@ three gathers.  Every value is an integer: exact equality.
 
 The CUDA cases hold the kernels of ``csrc/gather_rows.cu`` to the plain
 versions, with tables below and above 48 KiB of shared memory, and a table
-above the card's opt-in maximum, which must be refused.  They need no jax
+above the card's opt-in maximum, which must be refused; ``gather_lane``,
+which stages one table row per block, also at one row, rows whose bytes are
+not a multiple of 16, ragged M, a table over the whole-table limit whose
+rows fit (taken), and a row over the limit (refused).  They need no jax
 (``python -m pytest --noconftest -m cuda tests/test_torch_gather.py`` on a
 GPU machine); this module imports jax only inside the tests that use it.
 """
@@ -26,7 +29,7 @@ from nimble_tpu_torch import probe_gather
 from nimble_tpu_torch.ops import gather as g
 
 SHAPES = [(256, 8, 1024), (4096, 8, 2048), (37, 8, 300), (64, 5, 129),
-          (1, 4, 17)]
+          (1, 4, 17), (4097, 1, 1001)]
 
 
 def _inputs(seed, N, W, M):
@@ -226,6 +229,33 @@ def test_cuda_kernels_match_plain(cuda_device, N, W, M):
         assert torch.equal(got, plain(a, b)), fn.__name__
 
 
+# (W, N, M) of gather_lane: one row; N * 4 not a multiple of 16 (the row
+# starts off a 16-byte boundary); ragged M (the scalar path); 256 KiB and
+# 864 KiB tables, over the whole-table limit, with rows of 16 and 108 KiB
+LANE_SHAPES = [(1, 4096, 65536), (8, 4097, 65536), (8, 37, 3001),
+               (3, 1001, 65537), (16, 4096, 65536), (4, 55296, 10000),
+               (1, 1, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,N,M", LANE_SHAPES)
+def test_cuda_lane_kernel_edges_match_plain(cuda_device, W, N, M):
+    rng = np.random.default_rng(W * N + M)
+    tab_t = _t(rng.integers(0, 2**32, size=(W, N), dtype=np.uint32)).to(
+        cuda_device)
+    idx2 = _t(rng.integers(0, N, size=(W, M), dtype=np.int32)).to(
+        cuda_device)
+    before = g.gather_lane.launches
+    got = g.gather_lane(tab_t, idx2)
+    torch.cuda.synchronize()
+    assert g.gather_lane.launches == before + 1
+    assert torch.equal(got, g.gather_lane_plain(tab_t, idx2))
+    # the same on a table that is a contiguous slice, 4 bytes into its
+    # storage
+    sliced = torch.cat([tab_t.flatten()[:1], tab_t.flatten()])[1:].view(W, N)
+    assert torch.equal(g.gather_lane(sliced, idx2), got)
+
+
 @pytest.mark.cuda
 def test_cuda_kernels_clamp_out_of_range_indices(cuda_device):
     tab = torch.arange(40, dtype=torch.int32, device=cuda_device).reshape(
@@ -244,11 +274,15 @@ def test_cuda_table_over_the_opt_in_maximum_is_refused(cuda_device):
     N = limit // 32 + 1  # one (N, 8) int32 table just over the limit
     tab = torch.zeros((N, 8), dtype=torch.int32, device=cuda_device)
     idx = torch.zeros(64, dtype=torch.int32, device=cuda_device)
+    # gather_lane stages one row: a (2, N) table whose rows are each just
+    # over the limit
+    row = torch.zeros((2, limit // 4 + 1), dtype=torch.int32,
+                      device=cuda_device)
     for fn, a, b in ((g.gather_take, tab, idx),
                      (g.gather_taa, tab, idx[:, None].expand(64, 8)
                       .contiguous()),
-                     (g.gather_lane, tab.t().contiguous(),
-                      idx[None, :].expand(8, 64).contiguous())):
+                     (g.gather_lane, row,
+                      idx[None, :].expand(2, 64).contiguous())):
         before = fn.launches
         with pytest.raises(ValueError, match="opt in"):
             fn(a, b)
