@@ -82,9 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: List[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.engine == "mesh":
-        raise SystemExit(
-            "--engine mesh is not yet ported to nimble_tpu_torch; use "
-            "`python -m nimble_tpu.cli --engine mesh`")
+        raise SystemExit("--engine mesh is not yet ported to nimble_tpu_torch")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             "--device cuda was requested but torch.cuda.is_available() is "
@@ -113,8 +111,9 @@ def main(argv: List[str] | None = None) -> int:
         raise SystemExit(f"Unsupported file format: {ext}")
     if is_bam and not native.available():
         raise SystemExit(
-            "BAM input needs the native host library (native/nimble_host.cpp, "
-            "built with g++ at first use), which is not available; the "
+            "BAM input needs the native host library "
+            "(nimble_tpu_torch/csrc/nimble_host.cpp, built with g++ at first "
+            "use), which is not available; the "
             "slow BAM pipeline is not yet ported to nimble_tpu_torch")
 
     engines, references, configs = [], [], []

@@ -1,5 +1,5 @@
-// gather_rows.cu: row gathers from a table staged in shared memory, for
-// Hopper (sm_90a).  Built by nimble_tpu_torch/ops/_build.py with
+// gather_rows.cu: row gathers from a table held on chip, for Hopper
+// (sm_90a).  Built by nimble_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through ctypes by nimble_tpu_torch/ops/gather.py (gather_take,
 // gather_taa, gather_lane), which allocates the outputs and checks every
@@ -9,25 +9,46 @@
 // scripts/probe_mosaic_gather.py, each a Pallas kernel that holds its whole
 // table in VMEM and gathers rows from it with vector indices:
 //   pallas_take (k_take):  out[m, :] = tab[idx[m], :]         (M, W)
-//   pallas_taa  (k_taa):   out[m, w] = tab[idx2[m, w], w]     (M, W)
-//   pallas_lane (k_lane):  out[w, m] = tab_t[w, idx2[w, m]]   (W, M)
-// on int32 bit patterns (the port's storage of uint32).  The probe's shapes
-// are a (4096, 8) table and M = 65536.
+//   pallas_taa  (k_taa):   out[m, w] = tab[idx[m], w]         (M, W)
+//   pallas_lane (k_lane):  out[w, m] = tab_t[w, idx[m]]       (W, M)
+// on int32 bit patterns (the port's storage of uint32); k_taa and k_lane
+// broadcast their (M,) index inside the kernel.  The probe's shapes are a
+// (4096, 8) table and M = 65536.
 //
-// take and taa.  Shared memory stands in for VMEM: every block first stages
-// the whole table (N * W * 4 bytes; 128 KiB at the probe's shapes) into
-// dynamic shared memory, then gathers a grid-stride range of the output
-// from it.  The grid is as many blocks as fit on the card at once, so the
-// staging is repeated once per resident block.  Stores are coalesced: a
-// thread writes one 16-byte quarter of a row (two per 32-byte row of
-// W = 8), neighbouring threads the neighbouring quarters.  Above 48 KiB a
-// launch needs cudaFuncAttributeMaxDynamicSharedMemorySize, set once per
-// kernel and device; a table above the card's opt-in maximum (227 KiB on an
-// H100) is refused (kErrTableTooLarge) and never falls back to global
-// memory.  What bounds them on the H100: the output and index bytes (2.5
-// and 4.3 MB at the probe's shapes, ~1 us of HBM time) against the
-// staging, ~132 resident blocks each reading the 128 KiB table from L2,
-// ~17 MB of L2 traffic per call.
+// take and taa (nimble_gather_rows): one function covers both,
+//   out[m, w] = tab[idx[m * s0 + w * s1], w]
+// take is s0 = 1, s1 = 0; taa on k_taa's broadcast index (idx[:, None]
+// expanded to (M, W), strides (1, 0)) is the same row form, one index per
+// output row; taa on a contiguous (M, W) index (s0 = W, s1 = 1) is the
+// general form, a row per element.  Items: in the row form with W % 4 == 0
+// and 16-byte aligned pointers, a 16-byte quarter of a row (one index load
+// per row, one 16-byte table load and store); in the general form with
+// those, four neighbouring columns (one 16-byte index load, four 4-byte
+// table loads, one 16-byte store); else one element.  Neighbouring threads
+// write neighbouring 16 bytes; each thread loads its next index before its
+// current row.  Two designs (Table types), chosen by the entry from the
+// form and the table's size (choose_design):
+// - unstaged (GlobalTable): rows read straight from global memory, 16-byte
+//   quarters with ld.global.nc.L1::evict_last; each SM pulls only the rows
+//   its items touch, through L1 and the 50 MB L2; no size limit.  The row
+//   form's design at every size, and the general form's above one block's
+//   opt-in shared memory.
+// - per block (BlockTable): every block copies the whole table into its
+//   shared memory (16-byte loads by all threads over the table's 16-byte
+//   aligned envelope, so a table at any 4-byte offset needs no head or
+//   tail), then gathers from it.  The general form's design while the
+//   table fits in a block: four scattered 4-byte reads an item cost less
+//   from shared memory than from L1.
+// What bounds them at the probe's shapes (M = 65536, (4096, 8) table; 2.5
+// MB of index, table and output, ~0.74 us of HBM time): a copy of the
+// whole table into every SM is bound by what an SM can take in from L2
+// while all SMs copy at once (128 KiB a block takes longer than the whole
+// unstaged gather); the unstaged row form is the latency of an index load
+// and a dependent row load, with no copy ahead of it.  Two designs that
+// stage the table once per thread-block cluster (every block of a cluster
+// filled by multicast TMA copies; the table split by rows over the
+// cluster, read through distributed shared memory) measured slower than
+// both on an H100 and were removed (PERF.md section 6).
 //
 // lane.  Output row w reads table row w alone, so a block stages one row:
 // blocks map to (w, a range of m), about two per SM over all rows, and
@@ -40,40 +61,26 @@
 // and output bytes (4.2 MB, ~1.3 us of HBM time), with the row's staging
 // ahead of each block's first gather.
 //
-// Indices are clamped into [0, N) so that no read leaves the shared table;
-// in-range indices are the contract.
+// Indices are clamped into [0, N) so that no read leaves the table; in-range
+// indices are the contract.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 1024;  // take and taa
 constexpr int kLaneThreads = 256;
 constexpr int kLaneQuads = 4;  // index quads a lane thread holds at once
 constexpr int kMaxDevices = 64;
 constexpr int kErrTableTooLarge = -1;
 constexpr size_t kDefaultSmem = 48 * 1024;
+// designs of nimble_gather_rows (nimble_gather_rows_design's codes)
+constexpr int kUnstaged = 0;
+constexpr int kBlock = 1;
 
 __device__ __forceinline__ int clamp_index(int i, int n) {
   return min(max(i, 0), n - 1);
-}
-
-// Copy n_words int32 of the table into shared memory, 16 bytes at a time
-// when the source allows it.
-__device__ __forceinline__ void stage_table(const int32_t* __restrict__ tab,
-                                            int32_t* smem, int64_t n_words,
-                                            bool vec) {
-  if (vec) {
-    const int4* src = reinterpret_cast<const int4*>(tab);
-    int4* dst = reinterpret_cast<int4*>(smem);
-    for (int64_t i = threadIdx.x; i < n_words / 4; i += blockDim.x)
-      dst[i] = __ldg(src + i);
-  } else {
-    for (int64_t i = threadIdx.x; i < n_words; i += blockDim.x)
-      smem[i] = __ldg(tab + i);
-  }
-  __syncthreads();
 }
 
 __device__ __forceinline__ int64_t first_item() {
@@ -84,67 +91,164 @@ __device__ __forceinline__ int64_t item_stride() {
   return static_cast<int64_t>(gridDim.x) * blockDim.x;
 }
 
-// out[m, :] = tab[idx[m], :]; with vec (W % 4 == 0, aligned pointers) one
-// item is a 16-byte quarter of a row, else one element.
-__global__ void __launch_bounds__(kThreads) gather_take_kernel(
-    const int32_t* __restrict__ tab,  // (N, W)
-    const int32_t* __restrict__ idx,  // (M,)
-    int32_t* __restrict__ out,        // (M, W)
-    int N, int W, int64_t M, bool vec) {
-  extern __shared__ int4 smem4[];
-  int32_t* s = reinterpret_cast<int32_t*>(smem4);
-  stage_table(tab, s, static_cast<int64_t>(N) * W, vec);
-  if (vec) {
-    const int Q = W >> 2;
-    const int4* s4 = smem4;
-    int4* out4 = reinterpret_cast<int4*>(out);
-    for (int64_t e = first_item(); e < M * Q; e += item_stride()) {
-      const int64_t m = e / Q;
-      const int q = static_cast<int>(e - m * Q);
-      const int r = clamp_index(__ldg(idx + m), N);
-      out4[e] = s4[static_cast<int64_t>(r) * Q + q];
-    }
-  } else {
-    for (int64_t e = first_item(); e < M * W; e += item_stride()) {
-      const int64_t m = e / W;
-      const int w = static_cast<int>(e - m * W);
-      const int r = clamp_index(__ldg(idx + m), N);
-      out[e] = s[static_cast<int64_t>(r) * W + w];
-    }
-  }
-}
+// The row form's grid-stride walk over items e = m * Q + c (output row m,
+// item c of the row), stepped with no division in the loop (the grid, at
+// most the blocks resident at once, holds fewer than 2^32 threads).  On an
+// H100 the row form ran faster with this walk than with two 64-bit
+// divisions an item, and the general form, which needs only c, slower
+// than with its one modulo an item (PERF.md section 6).
+struct ItemWalk {
+  int64_t e, m, step_m;
+  int c, Q, step, step_c;
 
-// out[m, w] = tab[idx2[m, w], w]; with vec one item is four neighbouring
-// columns: one 16-byte index load and one 16-byte store.
-__global__ void __launch_bounds__(kThreads) gather_taa_kernel(
-    const int32_t* __restrict__ tab,   // (N, W)
-    const int32_t* __restrict__ idx2,  // (M, W)
-    int32_t* __restrict__ out,         // (M, W)
-    int N, int W, int64_t M, bool vec) {
+  __device__ explicit ItemWalk(int Q_) : Q(Q_) {
+    const unsigned q = static_cast<unsigned>(Q_);
+    const unsigned e0 = blockIdx.x * blockDim.x + threadIdx.x;
+    const unsigned s = gridDim.x * blockDim.x;
+    e = e0;
+    m = e0 / q;
+    c = static_cast<int>(e0 - static_cast<unsigned>(m) * q);
+    step = static_cast<int>(s);
+    step_m = s / q;
+    step_c = static_cast<int>(s - static_cast<unsigned>(step_m) * q);
+  }
+
+  __device__ __forceinline__ ItemWalk next() const {
+    ItemWalk n = *this;
+    n.e += step;
+    n.m += step_m;
+    n.c += step_c;
+    if (n.c >= Q) {
+      n.c -= Q;
+      ++n.m;
+    }
+    return n;
+  }
+};
+
+struct RowArgs {
+  const int32_t* tab;  // (N, W)
+  const int32_t* idx;  // row form: idx[m * s0]; general form: (M, W)
+  int32_t* out;        // (M, W)
+  int64_t M, s0;
+  int N, W;
+  bool vec;  // 16-byte items
+};
+
+// Shared memory of a block that holds a table of `bytes` at any 4-byte
+// offset: its 16-byte envelope.
+constexpr size_t held_smem(size_t bytes) { return (bytes + 15) / 16 * 16 + 16; }
+
+// The unstaged design: rows read from global memory, kept in L1.
+struct GlobalTable {
+  const int32_t* tab;
+  int W;
+  __device__ GlobalTable(const RowArgs& a, int4*) : tab(a.tab), W(a.W) {}
+  __device__ void stage(const RowArgs&) const {}
+  __device__ void ready() const {}
+  __device__ __forceinline__ int32_t load(int r, int w) const {
+    return __ldg(tab + static_cast<int64_t>(r) * W + w);
+  }
+  __device__ __forceinline__ int4 load4(int r, int q) const {
+    int4 v;
+    asm("ld.global.nc.L1::evict_last.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+        : "l"(tab + static_cast<int64_t>(r) * W + 4 * q));
+    return v;
+  }
+};
+
+// The per-block design: every block copies the whole table into its own
+// shared memory, all threads loading 16 bytes at a time over the table's
+// 16-byte aligned envelope.
+struct BlockTable {
+  int4* smem;
+  const int32_t* held;  // tab[0, 0] in this block's shared memory
+  int W;
+
+  __device__ BlockTable(const RowArgs& a, int4* smem_)
+      : smem(smem_),
+        held(reinterpret_cast<const int32_t*>(smem_) +
+             (reinterpret_cast<uintptr_t>(a.tab) & 15u) / 4),
+        W(a.W) {}
+
+  __device__ void stage(const RowArgs& a) const {
+    const uintptr_t f = 15;
+    const uintptr_t s = reinterpret_cast<uintptr_t>(a.tab);
+    const int4* src = reinterpret_cast<const int4*>(s & ~f);
+    const int64_t n16 = static_cast<int64_t>(
+        ((s + 4 * static_cast<uintptr_t>(a.N) * W + f) & ~f) - (s & ~f)) / 16;
+    for (int64_t i = threadIdx.x; i < n16; i += blockDim.x)
+      smem[i] = __ldg(src + i);
+  }
+
+  __device__ void ready() const { __syncthreads(); }
+
+  __device__ __forceinline__ int32_t load(int r, int w) const {
+    return held[static_cast<int64_t>(r) * W + w];
+  }
+};
+
+// out[m, w] = tab[idx[m * s0 + w * s1], w] from a Table; kRowIndex: s1 =
+// 0 (GlobalTable only), else the contiguous (M, W) index (GlobalTable or
+// BlockTable).  Each thread's first index is loaded before the table is
+// ready, and the next item's index before the current item's row.
+template <class Table, bool kRowIndex>
+__global__ void __launch_bounds__(kThreads) gather_rows_kernel(
+    const RowArgs a) {
   extern __shared__ int4 smem4[];
-  int32_t* s = reinterpret_cast<int32_t*>(smem4);
-  stage_table(tab, s, static_cast<int64_t>(N) * W, vec);
-  if (vec) {
-    const int Q = W >> 2;
-    const int4* idx4 = reinterpret_cast<const int4*>(idx2);
-    int4* out4 = reinterpret_cast<int4*>(out);
-    for (int64_t e = first_item(); e < M * Q; e += item_stride()) {
-      const int64_t m = e / Q;
-      const int w0 = static_cast<int>(e - m * Q) * 4;
-      const int4 ii = __ldg(idx4 + e);
+  const Table t(a, smem4);
+  t.stage(a);
+  const int N = a.N;
+  const int Q = a.vec ? a.W / 4 : a.W;  // items per output row
+  const int64_t items = a.M * Q;
+  if constexpr (kRowIndex) {
+    ItemWalk it(Q);
+    int r = it.e < items ? clamp_index(__ldg(a.idx + it.m * a.s0), N) : 0;
+    t.ready();
+    while (it.e < items) {
+      const ItemWalk nx = it.next();
+      int next_r = 0;
+      if (nx.e < items) next_r = clamp_index(__ldg(a.idx + nx.m * a.s0), N);
+      if (a.vec)
+        reinterpret_cast<int4*>(a.out)[it.e] = t.load4(r, it.c);
+      else
+        a.out[it.e] = t.load(r, it.c);
+      it = nx;
+      r = next_r;
+    }
+  } else if (a.vec) {
+    const int4* idx4 = reinterpret_cast<const int4*>(a.idx);
+    int64_t e = first_item();
+    int4 ii = make_int4(0, 0, 0, 0);
+    if (e < items) ii = __ldg(idx4 + e);
+    t.ready();
+    while (e < items) {
+      const int w0 = static_cast<int>(e % Q) * 4;
+      const int64_t next = e + item_stride();
+      int4 nx = make_int4(0, 0, 0, 0);
+      if (next < items) nx = __ldg(idx4 + next);
       int4 v;
-      v.x = s[static_cast<int64_t>(clamp_index(ii.x, N)) * W + w0];
-      v.y = s[static_cast<int64_t>(clamp_index(ii.y, N)) * W + w0 + 1];
-      v.z = s[static_cast<int64_t>(clamp_index(ii.z, N)) * W + w0 + 2];
-      v.w = s[static_cast<int64_t>(clamp_index(ii.w, N)) * W + w0 + 3];
-      out4[e] = v;
+      v.x = t.load(clamp_index(ii.x, N), w0);
+      v.y = t.load(clamp_index(ii.y, N), w0 + 1);
+      v.z = t.load(clamp_index(ii.z, N), w0 + 2);
+      v.w = t.load(clamp_index(ii.w, N), w0 + 3);
+      reinterpret_cast<int4*>(a.out)[e] = v;
+      e = next;
+      ii = nx;
     }
   } else {
-    for (int64_t e = first_item(); e < M * W; e += item_stride()) {
-      const int64_t m = e / W;
-      const int w = static_cast<int>(e - m * W);
-      const int r = clamp_index(__ldg(idx2 + e), N);
-      out[e] = s[static_cast<int64_t>(r) * W + w];
+    int64_t e = first_item();
+    int i = e < items ? __ldg(a.idx + e) : 0;
+    t.ready();
+    while (e < items) {
+      const int w = static_cast<int>(e % Q);
+      const int64_t next = e + item_stride();
+      int next_i = 0;
+      if (next < items) next_i = __ldg(a.idx + next);
+      a.out[e] = t.load(clamp_index(i, N), w);
+      e = next;
+      i = next_i;
     }
   }
 }
@@ -229,21 +333,31 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0u;
 }
 
+// The current device, checked against the per-device tables below.
+int current_device(int* dev) {
+  const cudaError_t e = cudaGetDevice(dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (*dev < 0 || *dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  return 0;
+}
+
+int smem_optin(int dev, int* optin) {
+  return static_cast<int>(cudaDeviceGetAttribute(
+      optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+}
+
 // Shared-memory setup and grid size of one launch: refuses a table above
 // the opt-in maximum, raises the kernel's dynamic shared-memory limit once
 // per device, and sizes the grid to the blocks that fit on the card at once.
 int configure(const void* fn, bool* configured, int threads, size_t smem,
               int64_t items, int* grid) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < 0 || dev >= kMaxDevices)
-    return static_cast<int>(cudaErrorInvalidDevice);
-  int optin = 0;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  int dev = 0, optin = 0;
+  int err = current_device(&dev);
+  if (!err) err = smem_optin(dev, &optin);
+  if (err) return err;
   if (smem > static_cast<size_t>(optin)) return kErrTableTooLarge;
+  cudaError_t e;
   if (smem > kDefaultSmem && !configured[dev]) {
     e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              optin);
@@ -264,49 +378,81 @@ int configure(const void* fn, bool* configured, int threads, size_t smem,
   return 0;
 }
 
-bool configured_take[kMaxDevices];
-bool configured_taa[kMaxDevices];
 bool configured_lane[kMaxDevices];
 
-}  // namespace
-
-extern "C" int nimble_gather_take(const void* tab, const void* idx, void* out,
-                                  int N, int W, int64_t M, void* stream) {
-  if (M <= 0) return 0;
-  if (N < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = W % 4 == 0 && aligned16(tab) && aligned16(out);
-  const size_t smem = static_cast<size_t>(N) * W * sizeof(int32_t);
+// One launch of gather_rows_kernel over Table.
+template <class Table, bool kRowIndex>
+int launch_rows(const RowArgs& a, size_t smem, cudaStream_t stream) {
+  static bool configured[kMaxDevices];
+  void (*fn)(const RowArgs) = gather_rows_kernel<Table, kRowIndex>;
+  const int64_t items = a.vec ? a.M * (a.W / 4) : a.M * a.W;
   int grid = 0;
-  const int err = configure(reinterpret_cast<const void*>(gather_take_kernel),
-                            configured_take, kThreads, smem,
-                            vec ? M * (W / 4) : M * W,
-                            &grid);
+  const int err = configure(reinterpret_cast<const void*>(fn), configured,
+                            kThreads, smem, items, &grid);
   if (err) return err;
-  gather_take_kernel<<<grid, kThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(tab), static_cast<const int32_t*>(idx),
-      static_cast<int32_t*>(out), N, W, M, vec);
+  fn<<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int nimble_gather_taa(const void* tab, const void* idx2, void* out,
-                                 int N, int W, int64_t M, void* stream) {
+// The design of one call on the current device (kUnstaged or kBlock, or a
+// CUDA error, negated), and the shared memory a block then holds: the row
+// form unstaged; the general form per block while the table fits in one
+// block's opt-in shared memory, else unstaged.
+int choose_design(int N, int W, bool row, size_t* smem) {
+  *smem = 0;
+  if (row) return kUnstaged;
+  int dev = 0, optin = 0;
+  int err = current_device(&dev);
+  if (!err) err = smem_optin(dev, &optin);
+  if (err) return -err;
+  const size_t held = held_smem(static_cast<size_t>(N) * W * 4);
+  if (held > static_cast<size_t>(optin)) return kUnstaged;
+  *smem = held;
+  return kBlock;
+}
+
+bool valid_form(int64_t s0, int64_t s1, int W) {
+  return s1 == 0 || (s1 == 1 && s0 == W);
+}
+
+}  // namespace
+
+// out[m, w] = tab[idx[m * s0 + w * s1], w] for an (N, W) int32 table:
+// s1 = 0 is the row form (take: s0 = 1; taa on a broadcast index), s0 = W
+// and s1 = 1 the general form (taa on a contiguous (M, W) index), in the
+// design choose_design picks.  Refuses no table.
+extern "C" int nimble_gather_rows(const void* tab, const void* idx, void* out,
+                                  int N, int W, int64_t M, int64_t s0,
+                                  int64_t s1, void* stream) {
   if (M <= 0) return 0;
-  if (N < 1 || W < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = W % 4 == 0 && aligned16(tab) && aligned16(idx2) &&
-                   aligned16(out);
-  const size_t smem = static_cast<size_t>(N) * W * sizeof(int32_t);
-  int grid = 0;
-  const int err = configure(reinterpret_cast<const void*>(gather_taa_kernel),
-                            configured_taa, kThreads, smem,
-                            vec ? M * (W / 4) : M * W,
-                            &grid);
-  if (err) return err;
-  gather_taa_kernel<<<grid, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(tab), static_cast<const int32_t*>(idx2),
-      static_cast<int32_t*>(out), N, W, M, vec);
-  return static_cast<int>(cudaGetLastError());
+  if (N < 1 || W < 1 || !valid_form(s0, s1, W))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool row = s1 == 0;
+  const bool vec = W % 4 == 0 && aligned16(tab) && aligned16(out) &&
+                   (row || aligned16(idx));
+  const RowArgs a{static_cast<const int32_t*>(tab),
+                  static_cast<const int32_t*>(idx),
+                  static_cast<int32_t*>(out), M, s0, N, W, vec};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  size_t smem = 0;
+  const int design = choose_design(N, W, row, &smem);
+  if (design < 0) return -design;
+  if (row) return launch_rows<GlobalTable, true>(a, 0, s);
+  return design == kBlock ? launch_rows<BlockTable, false>(a, smem, s)
+                          : launch_rows<GlobalTable, false>(a, 0, s);
+}
+
+// The design nimble_gather_rows runs for an (N, W) table in the form of
+// (s0, s1) on the current device: 0 unstaged, 1 per block, writing the
+// shared memory a block holds to *smem; < 0: a CUDA error code, negated.
+extern "C" int nimble_gather_rows_design(int N, int W, int64_t s0, int64_t s1,
+                                         int64_t* smem) {
+  if (N < 1 || W < 1 || !valid_form(s0, s1, W))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  size_t held = 0;
+  const int design = choose_design(N, W, s1 == 0, &held);
+  *smem = static_cast<int64_t>(held);
+  return design;
 }
 
 extern "C" int nimble_gather_lane(const void* tab_t, const void* idx2,
@@ -345,18 +491,14 @@ extern "C" int nimble_gather_lane(const void* tab_t, const void* idx2,
 // The opt-in shared-memory maximum of the current device, in bytes (< 0: a
 // CUDA error code, negated).
 extern "C" int nimble_gather_smem_optin() {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  int optin = 0;
-  e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev);
-  if (e != cudaSuccess) return -static_cast<int>(e);
-  return optin;
+  int dev = 0, optin = 0;
+  int err = current_device(&dev);
+  if (!err) err = smem_optin(dev, &optin);
+  return err ? -err : optin;
 }
 
 extern "C" const char* nimble_gather_error_string(int err) {
   if (err == kErrTableTooLarge)
-    return "the table exceeds the shared memory a block can opt in to";
+    return "a table row exceeds the shared memory a block can opt in to";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

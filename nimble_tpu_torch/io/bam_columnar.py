@@ -452,7 +452,13 @@ class ColumnarGroupStream:
         Independent per chunk (no stream state except ``self._error``,
         which only ever transitions None -> fatal); every retained column
         is a fresh filter() copy, so the pool buffers are reusable as soon
-        as this returns.
+        as this returns.  With prefetch on, this runs on a worker thread
+        (the prefetcher in mode 1, the meta stage in mode 2), which sets
+        ``self._error`` below and reads it again before its next chunk
+        (:meth:`_scan_chunk`, the meta stage's check); the consumer reads
+        it in :meth:`_batches_loop` only after the worker's end-of-stream
+        item has come through the queue, which orders the write before
+        that read.
         """
         count, fixed, qname, seq, qual, aux = scanres
         cols = self._native.bam_meta(count, fixed, qname, seq, qual,

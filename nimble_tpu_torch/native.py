@@ -252,11 +252,27 @@ def fill_matrix_encode(raw: bytes, offsets: np.ndarray, lens: np.ndarray,
     from RAW FASTQ text spans, applying the base LUT per byte (identical
     output to encode_bases_bulk + fill_matrix, without encoding the ~4x
     non-sequence block bytes).  Returns False when native is unavailable.
+    Raises ValueError when a span is longer than a row of ``out``, the rows
+    run past ``out``, or a span runs past ``raw``: the C++ loop checks
+    none of these.
     """
+    n = len(offsets)
+    if n:
+        lens_a = np.asarray(lens, dtype=np.int64)
+        if int(lens_a.max()) > out.shape[1]:
+            raise ValueError(f"fill_matrix_encode: a length of "
+                             f"{int(lens_a.max())} exceeds the row width "
+                             f"{out.shape[1]}")
+        if row0 + n > out.shape[0]:
+            raise ValueError(f"fill_matrix_encode: rows {row0}..{row0 + n} "
+                             f"run past the {out.shape[0]} rows of out")
+        end = int((np.asarray(offsets, dtype=np.int64) + lens_a).max())
+        if end > len(raw):
+            raise ValueError(f"fill_matrix_encode: a span ends at byte {end} "
+                             f"of a {len(raw)}-byte buffer")
     lib = _load()
     if lib is None:
         return False
-    n = len(offsets)
     dst = out[row0 : row0 + n]
     raw_c = np.frombuffer(raw, dtype=np.uint8)
     offsets_c = np.ascontiguousarray(offsets, dtype=np.int64)

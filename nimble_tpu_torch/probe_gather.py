@@ -3,12 +3,14 @@
 The port of ``scripts/probe_mosaic_gather.py``: the same table (4096, 8) of
 uint32 values and the same (65536,) indices from ``default_rng(0)``, the
 same printed lines.  On a CUDA card the three kernels of
-``csrc/gather_rows.cu`` (``ops/gather.py``) gather rows from a table staged
-in shared memory, against ``torch.index_select``, the gather from device
-memory (the probe's XLA ``jnp.take`` baseline); each must give the
-baseline's bits (``match=``).  Then the probe's two XLA sub-ops at its
-bench shapes, as plain torch ops: the funnel-shift + match of the span
-stage (B = 8192, C = 8, NWr = 6) and the sliding-window build + row take.
+``csrc/gather_rows.cu`` (``ops/gather.py``) gather rows of a table held on
+chip (take and taa, on the probe's broadcast index, through L1; lane from
+one table row staged in shared memory a block), against
+``torch.index_select``, the gather from device memory (the probe's XLA
+``jnp.take`` baseline); each must give the baseline's bits (``match=``).
+Then the probe's two XLA sub-ops at its bench shapes, as plain torch ops:
+the funnel-shift + match of the span stage (B = 8192, C = 8, NWr = 6) and
+the sliding-window build + row take.
 Times are the best of 5 rounds of 20 calls, between CUDA events on the
 card.
 
@@ -121,7 +123,10 @@ def main(argv=None) -> int:
     print(f"torch index_select: {t_base * 1e6:9.1f} us  "
           f"({t_base / M * 1e9:6.2f} ns/row)")
 
-    idx_rows = idx.reshape(-1, 1).expand(M, W).contiguous()
+    # k_taa's own index: the (M,) indices broadcast over each row, a view
+    # the kernel reads as one index per row; k_lane's broadcast is
+    # materialised (W, M), since gather_lane takes a contiguous index
+    idx_rows = idx.reshape(-1, 1).expand(M, W)
     tab_t = tab.t().contiguous()
     idx_lanes = idx.reshape(1, -1).expand(W, M).contiguous()
     ok_all = True

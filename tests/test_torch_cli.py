@@ -136,6 +136,33 @@ def test_cli_refusals(tmp_path, extra, match):
               "--device", "cpu", *extra])
 
 
+def test_cli_mesh_message_names_no_jax_module(tmp_path):
+    """The mesh refusal sends no one to the JAX package's CLI."""
+    with pytest.raises(SystemExit) as exc:
+        main(["-r", library_path("basic.json"), "-i", "reads.fastq", "-o",
+              str(tmp_path / "o.tsv"), "--device", "cpu", "--engine",
+              "mesh"])
+    msg = str(exc.value)
+    assert "mesh is not yet ported" in msg
+    assert "nimble_tpu." not in msg and "nimble_tpu " not in msg
+
+
+def test_cli_bam_without_native_names_the_ports_source(tmp_path,
+                                                       monkeypatch):
+    """BAM input without the native host library exits, naming the C++
+    source the port builds (not the JAX package's)."""
+    from nimble_tpu_torch import cli
+
+    monkeypatch.setattr(cli.native, "available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        main(["-r", library_path("basic.json"), "-i", "reads.bam", "-o",
+              str(tmp_path / "o.tsv.gz"), "--device", "cpu"])
+    msg = str(exc.value)
+    assert "nimble_tpu_torch/csrc/nimble_host.cpp" in msg
+    assert "native/nimble_host.cpp" not in msg.replace(
+        "nimble_tpu_torch/csrc/", "")
+
+
 def test_port_never_imports_jax(tmp_path):
     """The FASTQ run with one and two libraries, then the BAM branch in
     both walk modes and with two libraries, import neither jax nor the JAX
