@@ -84,7 +84,7 @@ nothing falls back to the CPU):
    process_fast, and over the golden fixture, equal to
    forensic_quirks.tsv; the CLI's ``--engine host`` TSV equal to the card
    CLI's.  Each run's walk counter must grow;
-9. mesh: two ranks of this script (``--mesh-rank``, started with the
+9. mesh: two ranks of this script (``--worker``, started with the
    environment torchrun gives its ranks) share the card, with gloo merges
    (the backend is printed): the CLI's ``--engine mesh`` on a (1, 2) mesh
    at the MHC-scale library (2^19 reads, both walks), on the 4 x bench
@@ -93,7 +93,23 @@ nothing falls back to the CPU):
    TSV and decompressed forensic TSV must equal the single-device card run
    of phases 4-6 byte for byte, and every rank's walk counter must grow in
    every run (each rank reports its counters through a file); the walk
-   rows' ``launches`` add both ranks' counts.
+   rows' ``launches`` add both ranks' counts;
+10. multihost: the CLI's multi-host mode (``--num-processes 2``, one
+   ``--process-id`` each, ``file://`` rendezvous, gloo) in two processes
+   of this script (``--worker``) sharing the card, each host with its own
+   TorchAlignEngine and pipeline: the bench FASTQ (2^19 reads, each host
+   parsing its byte range), a paired FASTQ of 2^17 pairs on the bench
+   library and the bench BAM (131,072 records, a group range per host).
+   The TSVs must equal the single-device card runs (phase 4's, and one made
+   here for the paired input) and the decompressed forensic TSV phase 6's,
+   byte for byte; the walk kernel must launch on both hosts in every run.
+   Each host's wall and NIMBLE_TIMING split (parse, exchange, align, merge
+   and owned reads; count, align, merge and owned groups for BAM) are
+   printed;
+11. entry: ``graft_entry.entry()``'s step on the card equal to
+   ``entry(device="cpu")``'s, and ``graft_entry.dryrun_multichip(2)`` on
+   two ranks sharing the card (gloo), every check passing and the walk
+   kernel launching on both ranks.
 
 Cut to fit the time limit: the MHC BAM runs read 131,072 records (16,384
 groups) rather than 524,288; that cell is bound by the host orientation
@@ -140,6 +156,7 @@ MULTI_BAM_TRIMS = "40:0.9,30:0.5,40:0.9,30:0.5"  # the JSON's is 40:0.9
 WALK_KERNELS = {"fused": "fused_span_walk", "double": "double_walk"}
 MESH_RANKS = 2           # ranks of the mesh phase, sharing the one card
 MESH_TIMEOUT_S = 900     # the mesh phase's processes are killed after this
+MULTIHOST_PAIRS = 1 << 17  # pairs of the multihost phase's paired FASTQ
 # the single-device card runs the later phases are held to, by (phase, case)
 RUNS: dict = {}
 GATHER_KERNELS = ("gather_take", "gather_taa", "gather_lane")
@@ -1185,18 +1202,21 @@ def _mesh_api_run(run: dict, init_method: str) -> int:
         runtime.close(ok)
 
 
-def mesh_rank(run_dir: str) -> int:
-    """A rank of the mesh phase: every run of ``run_dir/runs.json`` in turn
-    (the CLI with ``--engine mesh``, or the library API), each with its own
+def worker(run_dir: str) -> int:
+    """A process of the mesh or the multihost phase (rank or host ``RANK``
+    of ``WORLD_SIZE``): every run of ``run_dir/runs.json`` in turn (the CLI
+    with ``--engine mesh``, the library API on a mesh, or the CLI as one
+    host of a multi-host run, ``--num-processes``), each with its own
     process group and its launch counters set to 0 just before it; writes
-    ``run_dir/rank<r>.json``: per run its exit code, wall time and
-    launches, and the jax / nimble_tpu modules this process loaded."""
+    ``run_dir/rank<r>.json``: per run its exit code, wall time, launches
+    and (multi-host runs) its NIMBLE_TIMING lines, and the jax / nimble_tpu
+    modules this process loaded."""
     import torch
 
     sys.path.insert(0, ROOT)
     from nimble_tpu_torch import cli
 
-    rank = int(os.environ["RANK"])
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     counters = Counters()
     with open(os.path.join(run_dir, "runs.json")) as f:
         runs = json.load(f)
@@ -1205,16 +1225,27 @@ def mesh_rank(run_dir: str) -> int:
         init = "file://" + os.path.join(run_dir, f"init{i}")
         for w in counters.wrappers.values():
             w.launches = 0
+        entry = {}
         t0 = time.perf_counter()
         if run["kind"] == "cli":
             rc = cli.main(run["argv"] + ["--engine", "mesh", "--device",
                                          "cuda", "--init-method", init])
+        elif run["kind"] == "host":
+            err = io.StringIO()
+            os.environ["NIMBLE_TIMING"] = "1"
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(run["argv"] + [
+                    "--device", "cuda", "--num-processes", str(world),
+                    "--process-id", str(rank), "--init-method", init])
+            del os.environ["NIMBLE_TIMING"]
+            entry["timing"] = [ln for ln in err.getvalue().splitlines()
+                               if ln.startswith(("[multihost", "[byterange"))]
         else:
             rc = _mesh_api_run(run, init)
         torch.cuda.synchronize()
-        report["runs"].append({
-            "rc": rc, "wall_s": time.perf_counter() - t0,
-            "launches": {n: w.launches for n, w in counters.wrappers.items()}})
+        report["runs"].append(dict(
+            entry, rc=rc, wall_s=time.perf_counter() - t0,
+            launches={n: w.launches for n, w in counters.wrappers.items()}))
     report["leaked"] = sorted(m for m in sys.modules if m.split(".")[0] in
                               ("jax", "jaxlib", "nimble_tpu"))
     with open(os.path.join(run_dir, f"rank{rank}.json"), "w") as f:
@@ -1222,10 +1253,10 @@ def mesh_rank(run_dir: str) -> int:
     return 0
 
 
-def _mesh_ranks(run_dir: str, runs: list) -> list:
-    """Start MESH_RANKS processes of this script (``--mesh-rank``) with the
+def _workers(run_dir: str, runs: list) -> list:
+    """Start MESH_RANKS processes of this script (``--worker``) with the
     environment torchrun gives its ranks, all on the one card; wait at most
-    MESH_TIMEOUT_S, kill what is left, and return each rank's report."""
+    MESH_TIMEOUT_S, kill what is left, and return each process's report."""
     with open(os.path.join(run_dir, "runs.json"), "w") as f:
         json.dump(runs, f)
     procs = []
@@ -1234,7 +1265,7 @@ def _mesh_ranks(run_dir: str, runs: list) -> list:
                    LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(MESH_RANKS))
         log = open(os.path.join(run_dir, f"rank{rank}.log"), "w")
         procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+            [sys.executable, os.path.abspath(__file__), "--worker",
              run_dir], cwd=ROOT, env=env, stdout=log,
             stderr=subprocess.STDOUT), log))
     deadline = time.monotonic() + MESH_TIMEOUT_S
@@ -1251,7 +1282,7 @@ def _mesh_ranks(run_dir: str, runs: list) -> list:
         if p.returncode != 0:
             with open(os.path.join(run_dir, f"rank{rank}.log")) as f:
                 tail = f.read()[-4000:]
-            raise AssertionError(f"mesh rank {rank} exited {p.returncode}:\n"
+            raise AssertionError(f"worker {rank} exited {p.returncode}:\n"
                                  f"{tail}")
     with open(os.path.join(run_dir, "rank0.log")) as f:
         for line in f:
@@ -1311,7 +1342,7 @@ def phase_mesh(tmp: str, counters: Counters):
     cases.append(("bench", "fused", (2, 1), [out("api_bench.tsv")]))
 
     t0 = time.perf_counter()
-    reports = _mesh_ranks(d, runs)
+    reports = _workers(d, runs)
     total = time.perf_counter() - t0
     for rep in reports:
         if rep["leaked"]:
@@ -1353,6 +1384,161 @@ def phase_mesh(tmp: str, counters: Counters):
     return rows
 
 
+def _timing_fields(lines) -> tuple:
+    """A host's ``[multihost host i] stage 1.23s ... (N owned reads)``
+    NIMBLE_TIMING line -> ({stage: seconds}, N)."""
+    for line in lines:
+        if line.startswith("[multihost host"):
+            stages, owned = line.split("] ", 1)[1].split(" (")
+            words = stages.split()
+            return ({k: float(v.rstrip("s"))
+                     for k, v in zip(words[0::2], words[1::2])},
+                    int(owned.split()[0]))
+    raise AssertionError(f"no [multihost host] line in {lines}")
+
+
+def phase_multihost(tmp: str, seed: int, counters: Counters):
+    """The CLI's multi-host mode (``--num-processes 2``): two host
+    processes of this script sharing the card, each with its own
+    TorchAlignEngine on it and its own pipeline, meeting in a gloo process
+    group (``file://`` rendezvous): the bench FASTQ of phase 4 (2^19 reads,
+    the byte-range feed), a paired FASTQ of 2^17 pairs over the bench
+    library (a full parse sliced by record, pairs routed as units) and the
+    bench BAM of phase 6 (131,072 records, group ranges).  Each output must
+    equal its single-device card run byte for byte (the paired one is made
+    here), and the walk kernel must launch on both hosts in every run.
+    Returns result rows."""
+    from nimble_tpu_torch.workload import write_workload
+
+    d = os.path.join(tmp, "multihost")
+    os.makedirs(d)
+    smi = nvidia_smi()
+    bench_wl, (bench_out, bench_wall, *_r) = RUNS[("fastq", "bench")]
+    bam_wl, bam_bytes, bam_row = RUNS[("bam", "bench")]
+    _name, n_feat, feat_len, _groups = SIZES[0]
+    t0 = time.perf_counter()
+    paired = write_workload(os.path.join(d, "paired"), n_features=n_feat,
+                            feat_len=feat_len, read_len=90,
+                            n_reads=MULTIHOST_PAIRS, seed=seed, paired=True,
+                            mate_gap=50)
+    print(f"[multihost] wrote {MULTIHOST_PAIRS} pairs in "
+          f"{time.perf_counter() - t0:.1f} s")
+    single_paired = os.path.join(d, "single_paired.tsv")
+    with counters.run("multihost paired single-device", "fused"):
+        rc, paired_wall, _ = _quiet_cli(
+            ["-r", paired.library, "-i", paired.inputs[0], "-i",
+             paired.inputs[1], "-o", single_paired, "--device", "cuda"])
+    if rc != 0:
+        raise AssertionError(f"paired single-device CLI returned {rc}")
+
+    def out(name):
+        return os.path.join(d, name)
+
+    cases = [  # (case, argv, output, single-device bytes, its wall, units)
+        ("bench FASTQ", ["-r", bench_wl.library, "-i", bench_wl.inputs[0]],
+         out("bench.tsv"), _tsv_lines(bench_out)[0], bench_wall,
+         "reads"),
+        ("paired FASTQ", ["-r", paired.library, "-i", paired.inputs[0], "-i",
+                          paired.inputs[1]],
+         out("paired.tsv"), _tsv_lines(single_paired)[0], paired_wall,
+         "pairs"),
+        ("bench BAM", ["-r", bam_wl.library, "-i", bam_wl.inputs[0], "-c",
+                       "4"],
+         out("bam.tsv.gz"), bam_bytes, bam_row["cli_wall_s"], "groups"),
+    ]
+    runs = [{"kind": "host", "argv": argv + ["-o", o]}
+            for _c, argv, o, *_r in cases]
+    t0 = time.perf_counter()
+    reports = _workers(d, runs)
+    total = time.perf_counter() - t0
+    for rep in reports:
+        if rep["leaked"]:
+            raise AssertionError(f"multihost host {rep['rank']} imported "
+                                 f"{rep['leaked'][:5]}")
+    rows = []
+    for i, (case, _argv, o, want, single_wall, units) in enumerate(cases):
+        per_host = [rep["runs"][i] for rep in reports]
+        for host, r in enumerate(per_host):
+            others = {n: v for n, v in r["launches"].items()
+                      if n != "fused_span_walk" and v}
+            if (r["rc"] != 0 or r["launches"]["fused_span_walk"] <= 0
+                    or others):
+                raise AssertionError(f"multihost {case} host {host}: rc "
+                                     f"{r['rc']}, launches {r['launches']}")
+        got = _gunzip(o) if o.endswith(".gz") else _tsv_lines(o)[0]
+        if got != want:
+            raise AssertionError(f"multihost {case}: output != the "
+                                 "single-device card run")
+        if any(".part" in name for name in os.listdir(d)):
+            raise AssertionError(f"multihost {case}: part files remain")
+        counters.main_path["fused_span_walk"] += sum(
+            r["launches"]["fused_span_walk"] for r in per_host)
+        hosts = [{"wall_s": r["wall_s"],
+                  **dict(zip(("split_s", "owned"),
+                             _timing_fields(r["timing"]))),
+                  "walk_launches": r["launches"]["fused_span_walk"]}
+                 for r in per_host]
+        row = {"case": case, "hosts": 2, "backend": "gloo",
+               "wall_s": max(h["wall_s"] for h in hosts),
+               "single_device_wall_s": single_wall, "per_host": hosts,
+               "card": smi}
+        rows.append(row)
+        for host, h in enumerate(hosts):
+            split = ", ".join(f"{k} {v} s" for k, v in h["split_s"].items())
+            print(f"[multihost] {case}, host {host} of 2: CLI {h['wall_s']:.2f}"
+                  f" s; split {split}; {h['owned']} {units} owned; "
+                  f"fused_span_walk launches {h['walk_launches']}")
+        print(f"[multihost] {case}: two hosts {row['wall_s']:.2f} s (single "
+              f"device {single_wall:.2f} s); output == the single-device "
+              f"card run byte for byte; {smi}")
+    print(f"[multihost] {len(cases)} runs on two host processes sharing one "
+          f"card in {total:.1f} s, process start-up included (gloo through "
+          "host memory: this measures the protocol and the host feed, not "
+          "multi-host scaling)")
+    return rows
+
+
+def phase_entry(counters: Counters):
+    """The driver entries (``nimble_tpu_torch.graft_entry``): ``entry()``'s
+    step on the card equal to ``entry(device="cpu")``'s (the plain
+    versions), and ``dryrun_multichip(2)`` on two ranks sharing the card
+    (gloo), with the walk kernel launching on both.  Returns a result
+    row."""
+    import torch
+
+    from nimble_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    with counters.run("entry", "fused") as counts:
+        got = fn(*args)
+        torch.cuda.synchronize()
+    cpu_fn, cpu_args = graft_entry.entry(device="cpu")
+    want = cpu_fn(*cpu_args)
+    if got.shape != want.shape or not torch.equal(got.cpu(), want):
+        raise AssertionError("entry(): the card's step != the CPU's")
+    t0 = time.perf_counter()
+    reports = graft_entry.dryrun_multichip(MESH_RANKS)
+    wall = time.perf_counter() - t0
+    launches = [r["launches"]["fused_span_walk"] for r in reports]
+    for r in reports:
+        if (r["leaked"] or r["launches"]["fused_span_walk"] <= 0
+                or r["launches"]["double_walk"]):
+            raise AssertionError(f"dryrun rank {r['rank']}: launches "
+                                 f"{r['launches']}, imported "
+                                 f"{r['leaked'][:5]}")
+    counters.main_path["fused_span_walk"] += sum(launches)
+    checks = reports[0]["checks"]
+    print(f"[entry] entry(): ({got.shape[0]}, {got.shape[1]}) int32 on the "
+          f"card == entry(device='cpu'); launches {dict(counts)}")
+    print(f"[entry] dryrun_multichip({MESH_RANKS}): {checks} on "
+          f"{reports[0]['device']} ({reports[0]['backend']}), == the "
+          f"single-device engines field for field; fused_span_walk launches "
+          f"per rank {launches}; {wall:.2f} s, start-up included")
+    return {"entry_launches": dict(counts), "dryrun_ranks": MESH_RANKS,
+            "dryrun_checks": checks, "dryrun_wall_s": wall,
+            "dryrun_launches_per_rank": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1360,9 +1546,10 @@ def main(argv=None) -> int:
                     help="reads per FASTQ run (default 2^19)")
     ap.add_argument("--trace", action="store_true",
                     help="profile the MHC BAM card runs (device busy share)")
-    ap.add_argument("--mesh-rank", metavar="DIR",
-                    help="run as one rank of the mesh phase (started by the "
-                         "script itself)")
+    ap.add_argument("--worker", metavar="DIR",
+                    help="run as one rank of the mesh phase or one host of "
+                         "the multihost phase (started by the script "
+                         "itself)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1371,8 +1558,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs one NVIDIA GPU", file=sys.stderr)
         return 2
-    if args.mesh_rank:
-        return mesh_rank(args.mesh_rank)
+    if args.worker:
+        return worker(args.worker)
     sys.path.insert(0, ROOT)
     import nimble_tpu_torch  # noqa: F401  (fails outside a checkout)
 
@@ -1405,6 +1592,9 @@ def main(argv=None) -> int:
         align_batch_rows = timed("align_batch", phase_align_batch, tmp,
                                  args.seed, counters)
         mesh_rows = timed("mesh", phase_mesh, tmp, counters)
+        multihost_rows = timed("multihost", phase_multihost, tmp, args.seed,
+                               counters)
+    entry_row = timed("entry", phase_entry, counters)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "nimble_tpu"))
@@ -1419,6 +1609,8 @@ def main(argv=None) -> int:
     print(json.dumps({"multi_bam": multi_bam_rows}))
     print(json.dumps({"align_batch": align_batch_rows}))
     print(json.dumps({"mesh": mesh_rows}))
+    print(json.dumps({"multihost": multihost_rows}))
+    print(json.dumps({"entry": entry_row}))
     lines = []
     for name, cases in kernel.items():
         main_row = cases[0]

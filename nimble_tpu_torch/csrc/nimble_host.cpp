@@ -1,8 +1,8 @@
 // Native host ops for nimble_tpu_torch: the port's own copy of the JAX
-// package's native/nimble_host.cpp, with the same outputs, less the two
-// functions the port never calls (the flat hash-table build and the
-// multi-host read-ownership hash); the base-code LUTs are set up once through
-// a thread-safe function-local static.
+// package's native/nimble_host.cpp, with the same outputs (the multi-host
+// read-ownership hash included), less the one function the port never calls
+// (the flat hash-table build); the base-code LUTs are set up once through a
+// thread-safe function-local static.
 //
 // The reference gets its host-side speed from Rust + C dependencies
 // (rust-debruijn's packed DnaStrings, htslib, jemalloc); here the hot host
@@ -1500,6 +1500,49 @@ int bgzf_inflate_range(const uint8_t* data, const BgzfBlock* blocks,
 }  // namespace
 
 extern "C" {
+
+// Content-hash read ownership for the multi-host exchange: FNV-1a over each
+// row's EXACT lens[i] bytes (never the padded tail, so hosts holding the
+// same read at different pad widths agree), the length mixed in, then the
+// mate's bytes+length when paired.  Threaded over row ranges.
+void nimble_owner_hash(const int8_t* mat, int64_t n, int64_t w,
+                       const int32_t* lens,
+                       const int8_t* mate, int64_t mw,
+                       const int32_t* mate_lens,
+                       int64_t n_hosts, int64_t n_threads,
+                       int64_t* owner_out) {
+    auto run = [&](int64_t lo, int64_t hi) {
+        for (int64_t i = lo; i < hi; ++i) {
+            uint64_t h = 0x811C9DC5ULL;
+            const int8_t* r = mat + i * w;
+            int64_t L = lens[i] < w ? lens[i] : w;
+            for (int64_t j = 0; j < L; ++j)
+                h = (h ^ (uint8_t)r[j]) * 0x100000001B3ULL;
+            h = (h ^ (uint64_t)lens[i]) * 0x100000001B3ULL;
+            if (mate) {
+                const int8_t* m = mate + i * mw;
+                int64_t ML = mate_lens[i] < mw ? mate_lens[i] : mw;
+                for (int64_t j = 0; j < ML; ++j)
+                    h = (h ^ (uint8_t)m[j]) * 0x100000001B3ULL;
+                h = (h ^ (uint64_t)mate_lens[i]) * 0x100000001B3ULL;
+            }
+            owner_out[i] = (int64_t)(h % (uint64_t)n_hosts);
+        }
+    };
+    int64_t nt = std::min<int64_t>(
+        std::max<int64_t>(n_threads, 1),
+        std::max<int64_t>(1, (int64_t)std::thread::hardware_concurrency()));
+    if (nt <= 1 || n < (1 << 16)) {
+        run(0, n);
+        return;
+    }
+    std::vector<std::thread> workers;
+    for (int64_t t = 0; t < nt; ++t) {
+        int64_t lo = n * t / nt, hi = n * (t + 1) / nt;
+        workers.emplace_back(run, lo, hi);
+    }
+    for (auto& ww : workers) ww.join();
+}
 
 // Scan+inflate one raw chunk.  Writes the decompressed bytes of every
 // COMPLETE member into `out` (caller sizes it via nimble_bgzf_sizes).

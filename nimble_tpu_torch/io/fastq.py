@@ -170,6 +170,113 @@ def iter_fastq_matrix_chunks(path: str, chunk_reads: int):
             yield emit(min(pend, chunk_reads))
 
 
+def is_gzip(path: str) -> bool:
+    with open(path, "rb") as f:
+        return f.read(2) == b"\x1f\x8b"
+
+
+def _fastq_boundary(f, offset: int, size: int) -> int:
+    """First FASTQ record start at/after byte ``offset`` (deterministic:
+    a pure function of the file bytes, so adjacent hosts computing the
+    shared split point agree).  A line is a record start iff it begins
+    with '@' and the line after next begins with '+' — a quality line
+    starting with '@' fails this because the line 2 below it is a
+    sequence line."""
+    if offset <= 0:
+        return 0
+    if offset >= size:
+        return size
+    start = offset - 1  # back up one byte: catches a record starting AT offset
+    f.seek(start)
+    window = 1 << 20
+    buf = b""
+    while True:
+        buf += f.read(window)
+        at_eof = start + len(buf) >= size
+        pos = 0
+        while True:
+            nl = buf.find(b"\n", pos)
+            if nl < 0 or nl + 1 >= len(buf):
+                break
+            s = nl + 1
+            if buf[s : s + 1] == b"@":
+                e1 = buf.find(b"\n", s)
+                if e1 < 0:
+                    break
+                e2 = buf.find(b"\n", e1 + 1)
+                if e2 < 0:
+                    if not at_eof:
+                        break
+                    e2 = len(buf) - 1
+                # a record start is an '@' line whose line-after-next is the
+                # '+' separator; EOF there instead means this '@' line is a
+                # quality line of the final record (quality bytes can be
+                # '@' = Phred Q31), NOT a record start
+                if buf[e2 + 1 : e2 + 2] == b"+":
+                    return start + s
+            pos = nl + 1
+        if at_eof:
+            return size
+        window *= 2
+
+
+def read_fastq_matrix_byterange(path: str, byte_lo: int, byte_hi: int):
+    """Records whose START offset falls in the record-boundary-snapped
+    range [boundary(byte_lo), boundary(byte_hi)) as a code matrix + lengths.
+
+    The multi-host feed shards a plain FASTQ this way so each host reads
+    and parses only ~1/n of the file (SURVEY.md §2c "host feed sharded
+    per-host over input files/record ranges").  Requires an uncompressed
+    file (gzip streams are not seekable — callers fall back to record-range
+    slicing of a full parse)."""
+    import os
+    import sys
+    import time as _time
+
+    from nimble_tpu_torch import native
+
+    _timing = bool(os.environ.get("NIMBLE_TIMING"))
+    _t0 = _time.time()
+    with open(path, "rb") as f:
+        size = os.fstat(f.fileno()).st_size
+        blo = _fastq_boundary(f, byte_lo, size)
+        bhi = _fastq_boundary(f, byte_hi, size)
+        _t1 = _time.time()
+        f.seek(blo)
+        buf = f.read(bhi - blo)
+    _t2 = _time.time()
+
+    if native.available():
+        offsets, lens = native.fastq_scan(buf, max_records=len(buf) // 5 + 1)
+        _t3 = _time.time()
+        out = _matrix_from_scan(buf, offsets, lens)
+        if _timing:
+            print(f"[byterange] boundary {_t1-_t0:.2f}s read {_t2-_t1:.2f}s "
+                  f"scan {_t3-_t2:.2f}s encode+fill {_time.time()-_t3:.2f}s",
+                  file=sys.stderr)
+        return out
+
+    from nimble_tpu_torch.core.fast_count import pack_matrix
+
+    codes = []
+    text = io.BufferedReader(io.BytesIO(buf))
+    while True:
+        header = text.readline()
+        if not header:
+            break
+        header = header.strip()
+        if not header:
+            continue
+        seq = text.readline().strip()
+        sep = text.readline().strip()
+        qual_line = text.readline()
+        if (not header.startswith(b"@") or not sep.startswith(b"+")
+                or not qual_line):
+            raise ValueError("Unable to read sequence")
+        codes.append(encode_bases(seq))
+    return pack_matrix(codes)
+
+
 def read_fastq_matrix(path: str):
     """Whole FASTQ file as a padded (N, Lmax) int8 code matrix + lengths.
 

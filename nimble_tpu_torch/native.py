@@ -139,6 +139,11 @@ def _load():
                 + [ctypes.c_void_p] * 2                   # reasons
                 + [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
             )
+            lib.nimble_owner_hash.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
             lib.nimble_bgzf_sizes.restype = ctypes.c_int32
             lib.nimble_bgzf_sizes.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64,
@@ -317,6 +322,37 @@ def extract_kmer_keys(codes: np.ndarray, k: int) -> np.ndarray | None:
         return np.empty(0, dtype=np.uint64)
     out = np.empty(n - k + 1, dtype=np.uint64)
     lib.nimble_extract_kmer_keys(codes.ctypes.data, n, k, out.ctypes.data)
+    return out
+
+
+def owner_hash(mat, lens, n_hosts: int, mate_mat=None, mate_lens=None,
+               n_threads: int = 4):
+    """Per-read owner host from exact content bytes (FNV-1a over lens[i]
+    bytes + length, mate included when paired); None if native absent.
+    Raises ValueError when a lengths array or the mate matrix does not hold
+    one entry per row of ``mat``: the C++ loop checks neither."""
+    lib = _load()
+    if lib is None:
+        return None
+    mat = np.ascontiguousarray(mat, dtype=np.int8)
+    lens32 = np.ascontiguousarray(lens, dtype=np.int32)
+    n, w = mat.shape
+    if len(lens32) != n or (mate_mat is not None and not (
+            np.shape(mate_mat)[0] == len(mate_lens) == n)):
+        raise ValueError(f"owner_hash: {n} rows need {n} lengths (and mate "
+                         "rows and lengths)")
+    out = np.empty(n, dtype=np.int64)
+    if mate_mat is not None:
+        mate_mat = np.ascontiguousarray(mate_mat, dtype=np.int8)
+        ml32 = np.ascontiguousarray(mate_lens, dtype=np.int32)
+        lib.nimble_owner_hash(
+            mat.ctypes.data, n, w, lens32.ctypes.data,
+            mate_mat.ctypes.data, mate_mat.shape[1], ml32.ctypes.data,
+            n_hosts, n_threads, out.ctypes.data)
+    else:
+        lib.nimble_owner_hash(
+            mat.ctypes.data, n, w, lens32.ctypes.data,
+            None, 0, None, n_hosts, n_threads, out.ctypes.data)
     return out
 
 

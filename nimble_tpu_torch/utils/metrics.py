@@ -1,9 +1,10 @@
-"""Observability: throughput counters.
+"""Observability: throughput counters and a profiler hook.
 
 The reference's only observability is println! progress markers (per-1M-read
 blocks, `src/parse/bam.rs:121-127`) plus the forensic TSV itself.  The port
-keeps first-class counters (reads/s per stage); device traces are taken with
-``torch.profiler`` around a run (``chip_smoke.py``).
+keeps first-class counters (reads/s per stage) and an optional
+``torch.profiler`` trace hook (:func:`profiler_trace`) for on-device
+analysis.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Optional
 
 
 @dataclass
@@ -69,3 +70,32 @@ class MetricsRegistry:
 
 
 METRICS = MetricsRegistry()
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """Wrap a region in a ``torch.profiler`` trace when ``log_dir`` is set:
+    the host's activity, and the card's when CUDA is available, written as
+    a Chrome trace (``trace.json``, viewed in Perfetto or
+    ``chrome://tracing``) into ``log_dir``.  No-op when log_dir is None.
+
+    The counterpart of ``nimble_tpu.utils.metrics.profiler_trace`` (a JAX
+    profiler trace).  It differs from that original by design, so the host
+    modules' byte-equality test (``tests/test_torch_host.py``) does not
+    cover it; ``tests/test_torch_graft_entry.py`` does.
+    """
+    if not log_dir:
+        yield
+        return
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

@@ -64,7 +64,7 @@ def _ragged(rng, n, lo, hi, high=4, dtype=np.int8):
 
 NATIVE_CASES = ["encode_bases_bulk", "pack_reads_64", "pack_reads_92",
                 "fill_matrix_encode", "orient_decode", "take_rows",
-                "extract_kmer_keys"]
+                "extract_kmer_keys", "owner_hash"]
 
 
 @pytest.mark.parametrize("op", NATIVE_CASES)
@@ -100,6 +100,20 @@ def test_native_ops_match(op):
     elif op == "extract_kmer_keys":
         codes = rng.integers(0, 4, 4000).astype(np.int8)
         _same(lambda s: s.native.extract_kmer_keys(codes, 30))
+    elif op == "owner_hash":
+        # over 2^16 rows: the threaded path; lengths past the row width are
+        # clipped to it
+        mat = rng.integers(0, 4, (70000, 90)).astype(np.int8)
+        lens = rng.integers(20, 100, 70000).astype(np.int32)
+        mate = rng.integers(0, 4, (70000, 60)).astype(np.int8)
+        mate_lens = rng.integers(20, 61, 70000).astype(np.int32)
+        out = _same(lambda s: (s.native.owner_hash(mat, lens, 7),
+                               s.native.owner_hash(mat[:500], lens[:500], 3,
+                                                   mate[:500],
+                                                   mate_lens[:500]),
+                               s.native.owner_hash(mat, lens, 5, mate,
+                                                   mate_lens)))
+        assert len(set(np.frombuffer(out[0][2], np.int64))) == 7
     assert PORT.native.available()
 
 
@@ -131,6 +145,54 @@ def test_fastq_chunks_match(tmp_path, fastq, chunk_reads):
     chunks = _same(
         lambda s: list(s.iter_fastq_matrix_chunks(path, chunk_reads)))
     assert len(chunks) >= 1
+
+
+def _quality_at_fastq(path, n=40):
+    """A FASTQ whose even records' quality lines start with '@' (Phred
+    Q31), as a record header does; returns the byte offsets of every
+    record start and of every quality line that starts with '@'."""
+    rng = np.random.default_rng(12)
+    starts, quals, data = [], [], b""
+    for i in range(n):
+        L = int(rng.integers(30, 95))
+        seq = bytes(rng.choice(list(b"ACGTN"), L))
+        qual = (b"@" if i % 2 == 0 else b"I") + bytes(
+            rng.choice(list(b"@I#5"), L - 1))
+        starts.append(len(data))
+        head = b"@read%d\n" % i + seq + b"\n+\n"
+        if i % 2 == 0:
+            quals.append(len(data) + len(head))
+        data += head + qual + b"\n"
+    with open(path, "wb") as f:
+        f.write(data)
+    return starts, quals, len(data)
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "fallback"])
+@pytest.mark.parametrize("split", ["quality_at", "record_start", "even"])
+def test_fastq_byterange_shards_match(tmp_path, monkeypatch, split, native):
+    """read_fastq_matrix_byterange over a file cut at byte offsets that
+    land on a quality line starting with '@', on a record start, or evenly
+    in 5: each shard equals the JAX shard, and the shards in order hold
+    the whole file's reads."""
+    path = str(tmp_path / "q.fastq")
+    starts, quals, size = _quality_at_fastq(path)
+    cuts = {"quality_at": quals[3:30:6], "record_start": starts[5:35:7],
+            "even": [size * h // 5 for h in range(1, 5)]}[split]
+    bounds = [0, *cuts, size]
+    if not native:
+        for side in SIDES:
+            monkeypatch.setattr(side.native, "available", lambda: False)
+    fastq = {id(s): s.module("io.fastq") for s in SIDES}
+    shards = _same(lambda s: [
+        fastq[id(s)].read_fastq_matrix_byterange(path, lo, hi)
+        for lo, hi in zip(bounds, bounds[1:])])
+    rows = [bytes(np.frombuffer(m[2], np.int8).reshape(m[1])[i, : ln])
+            for (m, (_d, _s, lb)) in shards
+            for i, ln in enumerate(np.frombuffer(lb, np.int32))]
+    mat, lens = PORT.module("io.fastq").read_fastq_matrix(path)
+    assert rows == [bytes(mat[i, : lens[i]]) for i in range(len(lens))]
+    assert len(rows) == 40 and all(m[1][0] for m, _l in shards)
 
 
 @pytest.mark.parametrize("target,strictness", [(50, 0.9), (40, 0.5), (30, 0.0)])

@@ -6,7 +6,9 @@ copies.  A subprocess imports every module of the package and
 ``chip_smoke.py``, then checks ``sys.modules``; the import statements of the
 same files are checked in their syntax trees.  The mesh's processes
 (``parallel/*``, ``models/mesh_aligner.py``) are checked too: two gloo
-ranks run a mesh launch, then report their ``sys.modules``.
+ranks run a mesh launch, then report their ``sys.modules``; so are the
+two host processes of a multi-host CLI run (``parallel/multihost.py``) and
+the rank processes of ``graft_entry.dryrun_multichip``.
 """
 
 import ast
@@ -23,7 +25,8 @@ from torch_sides import MeshWorkers
 REPO = pathlib.Path(__file__).resolve().parent.parent
 MESH_MODULES = ("parallel/__init__.py", "parallel/mesh.py",
                 "parallel/sharded_fast.py", "parallel/sharded_index.py",
-                "models/mesh_aligner.py")
+                "models/mesh_aligner.py", "parallel/multihost.py",
+                "graft_entry.py")
 FORBIDDEN = ("jax", "jaxlib", "nimble_tpu")
 
 
@@ -118,3 +121,49 @@ def test_mesh_processes_load_neither_jax_nor_nimble_tpu(tmp_path):
         assert workers.run(__name__, "job_forbidden_modules") == [[], []]
     finally:
         workers.close()
+
+
+_MULTIHOST_HOST = textwrap.dedent("""
+    import sys
+    from nimble_tpu_torch import cli
+    rc = cli.main(sys.argv[1:])
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in {forbidden!r})
+    print("FORBIDDEN", bad)
+    sys.exit(rc)
+""").format(forbidden=FORBIDDEN)
+
+
+def test_multihost_processes_load_neither_jax_nor_nimble_tpu(tmp_path):
+    """Two host processes of the CLI's multi-host mode, end to end on the
+    basic fixture."""
+    data = REPO / "tests" / "data"
+    out = tmp_path / "o.tsv"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MULTIHOST_HOST, "-r",
+         str(data / "libraries" / "basic.json"), "-i",
+         str(data / "reads" / "basic.fastq"), "-o", str(out), "-f", "none",
+         "--device", "cpu", "--num-processes", "2", "--process-id", str(r),
+         "--init-method", f"file://{tmp_path / 'init'}"],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=150))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (stdout, stderr) in zip(procs, outs):
+        assert p.returncode == 0, stderr[-3000:]
+        assert "(multi-host)" in stdout and "FORBIDDEN []" in stdout
+    assert out.read_text().startswith("feature\tscore\n")
+
+
+def test_dryrun_ranks_load_neither_jax_nor_nimble_tpu():
+    from nimble_tpu_torch.graft_entry import dryrun_multichip
+
+    reports = dryrun_multichip(2, device="cpu", timeout=300)
+    assert [r["leaked"] for r in reports] == [[], []]
