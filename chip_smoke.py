@@ -109,7 +109,19 @@ nothing falls back to the CPU):
 11. entry: ``graft_entry.entry()``'s step on the card equal to
    ``entry(device="cpu")``'s, and ``graft_entry.dryrun_multichip(2)`` on
    two ranks sharing the card (gloo), every check passing and the walk
-   kernel launching on both ranks.
+   kernel launching on both ranks;
+12. bench: the port's bench entry (``nimble_tpu_torch.bench.run``, what
+   ``python -m nimble_tpu_torch.bench`` prints) in every card mode at its
+   default sizes: the default loop (2^19 reads, 12 timed rounds, and
+   ``kernel_ns_per_read``), ``--walk double``, ``--paired``, ``--e2e``,
+   ``--bam`` (131,072 records), ``--libraries 4`` and ``--mesh`` (one
+   rank: a (1, 1) mesh), the walk kernel of the mode's walk launching and
+   no other kernel.  Each mode's counted results at 32,768 reads (512 BAM
+   groups) on the card must equal its ``--device cpu`` run, and the
+   full-size default, double-walk and mesh runs must count the same
+   callsets.  Each mode's JSON row is printed; the default row also gives
+   one compact pass of 8,192 reads in device time (profiler) and per call
+   (CUDA events), per read, beside its ``kernel_ns_per_read``.
 
 Cut to fit the time limit: the MHC BAM runs read 131,072 records (16,384
 groups) rather than 524,288; that cell is bound by the host orientation
@@ -181,6 +193,19 @@ REPLACES = {
     "gather_taa": "scripts/probe_mosaic_gather.py:101",
     "gather_lane": "scripts/probe_mosaic_gather.py:128",
 }
+BENCH_MODES = (  # (label, nimble_tpu_torch.bench arguments, walk)
+    ("default", [], "fused"),
+    ("double", ["--walk", "double"], "double"),
+    ("paired", ["--paired"], "fused"),
+    ("e2e", ["--e2e"], "fused"),
+    ("bam", ["--bam"], "fused"),
+    ("libraries 4", ["--libraries", "4"], "fused"),
+    ("mesh", ["--mesh"], "fused"),
+)
+# the size at which each bench mode's card results are held to the CPU's
+# (a 2048-read launch batch keeps the CPU run's kernel_ns_per_read short)
+BENCH_CHECK = ["--reads", "32768", "--bam-groups", "512", "--timed-rounds",
+               "1", "--launch-batch", "2048"]
 
 
 def nvidia_smi() -> str:
@@ -1539,6 +1564,73 @@ def phase_entry(counters: Counters):
             "dryrun_launches_per_rank": launches}
 
 
+def phase_bench(counters: Counters):
+    """The port's bench entry (``nimble_tpu_torch.bench``) in every card
+    mode at its default sizes, each run in-process with the walk kernel of
+    its ``--walk`` the only kernel launching; each mode's counted results
+    on the card at BENCH_CHECK's size equal to its ``--device cpu`` run,
+    and the full-size default, double-walk and mesh runs equal to each
+    other.  Returns each mode's JSON row."""
+    import torch
+
+    from nimble_tpu_torch import bench
+
+    rows, full = [], {}
+    for label, argv, walk in BENCH_MODES:
+        t0 = time.perf_counter()
+        with counters.run(f"bench {label}", walk) as counts:
+            row, results = bench.run(argv)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        full[label] = results
+        with counters.run(f"bench {label} at the check size", walk):
+            card = bench.run(argv + BENCH_CHECK)[1]
+        cpu = bench.run(argv + BENCH_CHECK + ["--device", "cpu"])[1]
+        if card != cpu or not card:
+            raise AssertionError(f"bench {label}: the card's counted results "
+                                 "!= the CPU's")
+        rows.append({"mode": label, "argv": argv, **row,
+                     "launches": dict(counts), "mode_wall_s": wall})
+        note = {k: row[k] for k in ("kernel_ns_per_read", "median_value",
+                                    "pipeline") if k in row}
+        print(f"[bench] {label}: {row['metric']} = {row['value']} "
+              f"{row['unit']} {note}; {wall:.1f} s in all; launches "
+              f"{dict(counts)}; counted results at `{' '.join(BENCH_CHECK)}`"
+              f" == --device cpu; {row['device']['card']}")
+    if not full["default"] == full["double"] == full["mesh"]:
+        raise AssertionError("bench: the default, double-walk and mesh runs "
+                             "counted differently")
+    print("[bench] the full-size default, --walk double and --mesh runs "
+          "counted the same callsets")
+    rows[0].update(_bench_pass_times(bench))
+    return rows
+
+
+def _bench_pass_times(bench) -> dict:
+    """What one compact pass of the default mode (KERNEL_BATCH bench reads
+    at bucket 92, the pass ``kernel_ns_per_read`` queues) costs the card
+    and its caller: the summed device time of its kernels (profiler) and
+    the time per call between CUDA events, both per read."""
+    import torch
+
+    from nimble_tpu_torch.models.aligner import TorchAlignEngine, pack_reads
+
+    index, _ref, cfg, mat, lens = bench.build_workload(n_reads=KERNEL_BATCH)
+    engine = TorchAlignEngine(index, cfg, device="cuda")
+    packed = torch.from_numpy(pack_reads(mat, lens, 92)).cuda()
+    launch = engine._device_pass(92, False)
+    dev = device_ms(lambda: launch(packed), 20)
+    call = cuda_ms(lambda: launch(packed), 50)
+    out = {"pass_device_ns_per_read": dev / KERNEL_BATCH * 1e6,
+           "pass_call_ns_per_read": call / KERNEL_BATCH * 1e6}
+    print(f"[bench] one compact pass of {KERNEL_BATCH} bench reads: device "
+          f"time {dev:.3f} ms (profiler, every kernel) = "
+          f"{out['pass_device_ns_per_read']:.1f} ns/read; per call "
+          f"{call:.3f} ms (CUDA events) = "
+          f"{out['pass_call_ns_per_read']:.1f} ns/read")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1595,6 +1687,7 @@ def main(argv=None) -> int:
         multihost_rows = timed("multihost", phase_multihost, tmp, args.seed,
                                counters)
     entry_row = timed("entry", phase_entry, counters)
+    bench_rows = timed("bench", phase_bench, counters)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "nimble_tpu"))
@@ -1611,6 +1704,7 @@ def main(argv=None) -> int:
     print(json.dumps({"mesh": mesh_rows}))
     print(json.dumps({"multihost": multihost_rows}))
     print(json.dumps({"entry": entry_row}))
+    print(json.dumps({"bench": bench_rows}))
     lines = []
     for name, cases in kernel.items():
         main_row = cases[0]

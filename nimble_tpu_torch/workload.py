@@ -1,9 +1,15 @@
 """Synthetic workloads written to disk, made from a seed.
 
-The recipe of ``bench.py``'s ``build_workload``: random features (the
-library JSON doubles each with its reverse complement at load), reads
-sampled as fragments of the doubled rows, ~20% with one substitution and
-~5% replaced by junk.  ``write_workload`` writes the library JSON and the
+Shaped like ``bench.py``'s ``build_workload``: random features (the library
+JSON doubles each with its reverse complement at load), reads sampled as
+fragments of the doubled rows, ~20% with one substitution and ~5% replaced
+by junk.  :func:`generate` draws the same library as ``build_workload`` for
+the same seed, but not the same reads: its starts come from ``[0, feat_len
+- span + 1)``, where ``build_workload`` draws them from ``[0, feat_len -
+read_len)``, and its R2 mates are fragments further down the row, where
+``bench.py --paired`` takes the reverse complement of each R1.  The bench's
+exact arrays are ``nimble_tpu_torch.bench.build_workload`` (and
+``bench.paired_mates``).  ``write_workload`` writes the library JSON and the
 FASTQ file(s) that the CLI reads, so a run exercises the whole path from
 parsing to the TSV.  ``write_bam_workload`` writes the same library with a
 synthetic 10x BAM over it, the recipe of ``bench.py --bam``.
@@ -86,6 +92,8 @@ def generate(*, n_features=50, feat_len=500, read_len=90, n_reads=1 << 16,
     Returns (features, doubled rows, R1 codes (n_reads, read_len) int8, R2
     codes or None).  R2 is the reverse complement of a fragment
     ``mate_gap`` bases (default ``read_len``) downstream on the same row.
+    The features are ``bench.py``'s ``build_workload``'s for the same seed;
+    the reads are not (see the module docstring).
     """
     rng = np.random.default_rng(seed)
     feats = _features(rng, n_features, feat_len)
