@@ -119,9 +119,24 @@ nothing falls back to the CPU):
    no other kernel.  Each mode's counted results at 32,768 reads (512 BAM
    groups) on the card must equal its ``--device cpu`` run, and the
    full-size default, double-walk and mesh runs must count the same
-   callsets.  Each mode's JSON row is printed; the default row also gives
-   one compact pass of 8,192 reads in device time (profiler) and per call
-   (CUDA events), per read, beside its ``kernel_ns_per_read``.
+   callsets.  Each mode's JSON row is printed; a row with
+   ``kernel_ns_per_read`` (the root bench's queued passes between CUDA
+   events) must carry ``kernel_device_ns_per_read`` (the same pass's kernel
+   time from a profiler trace), positive and no larger; the default row
+   also gives one compact pass of 8,192 reads per call (CUDA events), per
+   read;
+13. fuzz: the port's differential fuzz campaigns (``nimble_tpu_torch.fuzz``)
+   on the card with ``--walk both``: the engine campaign (each engine's
+   ``align_batch`` and full pass equal to the host oracle, the card's raw
+   compact and full results equal to the CPU's plain kernels bit for bit,
+   and every 5th trial a planted fingerprint-collision block), the FASTQ
+   campaign (the pipeline's TSVs equal to the slow path's) and the BAM
+   campaign (process_fast's forensic bytes equal to bam_pipeline's), each
+   at a fixed trial count and seed; then the mesh trials of the engine and
+   FASTQ campaigns on two ranks of this script sharing the card (gloo).
+   Each campaign must end with zero divergences and launch both walk
+   kernels (on both ranks in the mesh block); a ``{"fuzz": [...]}`` line
+   gives each campaign's trials, reads or records, seconds and launches.
 
 Cut to fit the time limit: the MHC BAM runs read 131,072 records (16,384
 groups) rather than 524,288; that cell is bound by the host orientation
@@ -202,6 +217,10 @@ BENCH_MODES = (  # (label, nimble_tpu_torch.bench arguments, walk)
     ("libraries 4", ["--libraries", "4"], "fused"),
     ("mesh", ["--mesh"], "fused"),
 )
+# phase 13: each fuzz campaign on the card with both walks, at a fixed
+# trial count, and the mesh trials of two of them on MESH_RANKS ranks
+FUZZ = (("differential", 60), ("fastq", 300), ("bam", 150))
+FUZZ_MESH = (("differential", 4), ("fastq", 4))
 # the size at which each bench mode's card results are held to the CPU's
 # (a 2048-read launch batch keeps the CPU run's kernel_ns_per_read short)
 BENCH_CHECK = ["--reads", "32768", "--bam-groups", "512", "--timed-rounds",
@@ -235,31 +254,12 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def device_ms(fn, iters: int, kernel: str = "") -> float:
-    """Device time per call of ``fn`` from a torch.profiler (CUPTI) trace:
-    the summed duration of the CUDA kernels whose name contains ``kernel``
-    (all kernels when empty), over ``iters`` calls.  Unlike :func:`cuda_ms`
-    it excludes the host's launch gaps between kernels."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    """Device time per call of ``fn`` from a torch.profiler trace
+    (``nimble_tpu_torch.utils.metrics.device_ms``): the kernels' own time,
+    without the host's launch gaps."""
+    from nimble_tpu_torch.utils.metrics import device_ms as measure
 
-    fn()
-    torch.cuda.synchronize()
-    # a trace is taken only when it holds a record of every launch: at
-    # least one a call, and for a named kernel a whole number a call.
-    # Traces on an H100 have come back missing about a quarter of a
-    # kernel's records, for no cause found yet (PERF.md section 7); such a
-    # trace is retaken, at most four times, and said so
-    for attempt in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total_us, count = _device_us(prof, kernel)
-        if count >= iters and (not kernel or count % iters == 0):
-            return total_us / 1e3 / iters
-        print(f"[profiler] trace {attempt + 1} of {kernel or 'all kernels'!r}"
-              f" holds {count} kernel records for {iters} calls; retaken")
-    raise AssertionError(f"profiler traces of {kernel!r} miss launches")
+    return measure(fn, iters, kernel)
 
 
 def cold_device_ms(fn, iters: int, kernel: str) -> float:
@@ -286,18 +286,6 @@ def _cold(row: dict, fn, kernel: str) -> str:
     return (f"; L2 cold: device time {row['cold_device_ms']:.4f} ms, at "
             f"{row['cold_bound_share']:.3f} of the bound (warm "
             f"{row['bound_share']:.3f})")
-
-
-def _device_us(prof, name: str = "") -> tuple:
-    """(summed device time in us, records) of the trace's CUDA kernels
-    whose name contains ``name``."""
-    total, count = 0.0, 0
-    for e in prof.key_averages():
-        if e.device_type.name == "CUDA" and name in e.key:
-            total += getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-            count += e.count
-    return total, count
 
 
 class Counters:
@@ -1060,10 +1048,12 @@ def phase_bam(tmp: str, seed: int, counters: Counters, trace: bool):
                     if trace and name == "mhc":
                         from torch.profiler import ProfilerActivity, profile
 
+                        from nimble_tpu_torch.utils.metrics import device_us
+
                         with profile(activities=[ProfilerActivity.CUDA]) as p:
                             rc, wall, err = _quiet_cli(argv)
                             torch.cuda.synchronize()
-                        busy = _device_us(p)[0] / 1e6 / wall
+                        busy = device_us(p)[0] / 1e6 / wall
                     else:
                         rc, wall, err = _quiet_cli(argv)
             else:
@@ -1265,6 +1255,13 @@ def worker(run_dir: str) -> int:
             del os.environ["NIMBLE_TIMING"]
             entry["timing"] = [ln for ln in err.getvalue().splitlines()
                                if ln.startswith(("[multihost", "[byterange"))]
+        elif run["kind"] == "fuzz":
+            from importlib import import_module
+
+            entry["summary"] = import_module(
+                f"nimble_tpu_torch.fuzz.{run['campaign']}").run(
+                    run["argv"] + ["--init-method", init])
+            rc = 0
         else:
             rc = _mesh_api_run(run, init)
         torch.cuda.synchronize()
@@ -1591,8 +1588,16 @@ def phase_bench(counters: Counters):
                                  "!= the CPU's")
         rows.append({"mode": label, "argv": argv, **row,
                      "launches": dict(counts), "mode_wall_s": wall})
-        note = {k: row[k] for k in ("kernel_ns_per_read", "median_value",
-                                    "pipeline") if k in row}
+        if "kernel_ns_per_read" in row and not (
+                0 < row["kernel_device_ns_per_read"]
+                <= row["kernel_ns_per_read"]):
+            raise AssertionError(
+                f"bench {label}: kernel_device_ns_per_read "
+                f"{row['kernel_device_ns_per_read']} is not in (0, "
+                f"kernel_ns_per_read {row['kernel_ns_per_read']}]")
+        note = {k: row[k] for k in ("kernel_ns_per_read",
+                                    "kernel_device_ns_per_read",
+                                    "median_value", "pipeline") if k in row}
         print(f"[bench] {label}: {row['metric']} = {row['value']} "
               f"{row['unit']} {note}; {wall:.1f} s in all; launches "
               f"{dict(counts)}; counted results at `{' '.join(BENCH_CHECK)}`"
@@ -1608,9 +1613,9 @@ def phase_bench(counters: Counters):
 
 def _bench_pass_times(bench) -> dict:
     """What one compact pass of the default mode (KERNEL_BATCH bench reads
-    at bucket 92, the pass ``kernel_ns_per_read`` queues) costs the card
-    and its caller: the summed device time of its kernels (profiler) and
-    the time per call between CUDA events, both per read."""
+    at bucket 92, the pass ``kernel_ns_per_read`` queues) costs its caller:
+    the time per call between CUDA events, per read (its device time is
+    the row's ``kernel_device_ns_per_read``)."""
     import torch
 
     from nimble_tpu_torch.models.aligner import TorchAlignEngine, pack_reads
@@ -1619,16 +1624,85 @@ def _bench_pass_times(bench) -> dict:
     engine = TorchAlignEngine(index, cfg, device="cuda")
     packed = torch.from_numpy(pack_reads(mat, lens, 92)).cuda()
     launch = engine._device_pass(92, False)
-    dev = device_ms(lambda: launch(packed), 20)
     call = cuda_ms(lambda: launch(packed), 50)
-    out = {"pass_device_ns_per_read": dev / KERNEL_BATCH * 1e6,
-           "pass_call_ns_per_read": call / KERNEL_BATCH * 1e6}
-    print(f"[bench] one compact pass of {KERNEL_BATCH} bench reads: device "
-          f"time {dev:.3f} ms (profiler, every kernel) = "
-          f"{out['pass_device_ns_per_read']:.1f} ns/read; per call "
-          f"{call:.3f} ms (CUDA events) = "
-          f"{out['pass_call_ns_per_read']:.1f} ns/read")
+    out = {"pass_call_ns_per_read": call / KERNEL_BATCH * 1e6}
+    print(f"[bench] one compact pass of {KERNEL_BATCH} bench reads: per call "
+          f"{call:.3f} ms (CUDA events) = {out['pass_call_ns_per_read']:.1f} "
+          "ns/read")
     return out
+
+
+def phase_fuzz(tmp: str, seed: int, counters: Counters):
+    """The port's fuzz campaigns (``nimble_tpu_torch.fuzz``) on the card
+    with both walks: each campaign's FUZZ trials in this process, its
+    launches counted, and the mesh trials of FUZZ_MESH on MESH_RANKS ranks
+    of this script sharing the card (gloo, as the mesh phase).  A campaign
+    raises at its first divergence.  Returns the ``fuzz`` rows."""
+    import importlib
+
+    import torch
+
+    smi = nvidia_smi()
+    walks = tuple(WALK_KERNELS.values())
+    rows = []
+    for name, trials in FUZZ:
+        argv = ["--walk", "both", "--trials", str(trials), "--seed",
+                str(seed)]
+        t0 = time.perf_counter()
+        with counters.run(f"fuzz {name}", kernels=walks) as counts:
+            summary = importlib.import_module(
+                f"nimble_tpu_torch.fuzz.{name}").run(argv)
+            torch.cuda.synchronize()
+        rows.append(_fuzz_row(summary, argv, 1, time.perf_counter() - t0,
+                              dict(counts), smi))
+    d = os.path.join(tmp, "fuzz_mesh")
+    os.makedirs(d)
+    runs = [{"kind": "fuzz", "campaign": name, "argv": [
+        "--walk", "both", "--mesh-only", "--trials", str(trials), "--seed",
+        str(seed)]} for name, trials in FUZZ_MESH]
+    reports = _workers(d, runs)
+    for rep in reports:
+        if rep["leaked"]:
+            raise AssertionError(f"fuzz mesh rank {rep['rank']} imported "
+                                 f"{rep['leaked'][:5]}")
+    for i, (name, _trials) in enumerate(FUZZ_MESH):
+        per_rank = [rep["runs"][i] for rep in reports]
+        for rank, r in enumerate(per_rank):
+            if r["rc"] != 0 or any(r["launches"][k] <= 0 for k in walks):
+                raise AssertionError(f"fuzz {name} mesh rank {rank}: rc "
+                                     f"{r['rc']}, launches {r['launches']}")
+        for kernel in counters.main_path:
+            counters.main_path[kernel] += sum(r["launches"][kernel]
+                                              for r in per_rank)
+        launches = {k: sum(r["launches"][k] for r in per_rank)
+                    for k in walks}
+        rows.append(_fuzz_row(per_rank[0]["summary"], runs[i]["argv"],
+                              MESH_RANKS, per_rank[0]["wall_s"], launches,
+                              smi))
+    return rows
+
+
+def _fuzz_row(summary: dict, argv, ranks: int, wall: float, launches: dict,
+              smi: str) -> dict:
+    """A campaign's ``fuzz`` row, printed."""
+    name = summary["campaign"]
+    unit = "records" if name == "bam" else "reads"
+    row = {"campaign": name, "argv": argv, "ranks": ranks,
+           "trials": summary["trials"], unit: summary["items"],
+           "divergences": summary["divergences"],
+           "seconds": summary["seconds"], "wall_s": wall,
+           **{k: v for k, v in summary.items() if k.startswith("planted")},
+           "fused_span_walk_launches": launches["fused_span_walk"],
+           "double_walk_launches": launches["double_walk"], "card": smi}
+    if not row["trials"] or min(row["fused_span_walk_launches"],
+                                row["double_walk_launches"]) <= 0:
+        raise AssertionError(f"fuzz {name}: {row}")
+    print(f"[fuzz] {name} on {ranks} rank(s), `{' '.join(argv)}`: "
+          f"{row['trials']} trials, {row[unit]} {unit}, zero divergences, "
+          f"{row['seconds']:.1f} s; launches fused_span_walk "
+          f"{row['fused_span_walk_launches']}, double_walk "
+          f"{row['double_walk_launches']}; {smi}")
+    return row
 
 
 def main(argv=None) -> int:
@@ -1688,6 +1762,8 @@ def main(argv=None) -> int:
                                counters)
     entry_row = timed("entry", phase_entry, counters)
     bench_rows = timed("bench", phase_bench, counters)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        fuzz_rows = timed("fuzz", phase_fuzz, tmp, args.seed, counters)
 
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "nimble_tpu"))
@@ -1705,6 +1781,7 @@ def main(argv=None) -> int:
     print(json.dumps({"multihost": multihost_rows}))
     print(json.dumps({"entry": entry_row}))
     print(json.dumps({"bench": bench_rows}))
+    print(json.dumps({"fuzz": fuzz_rows}))
     lines = []
     for name, cases in kernel.items():
         main_row = cases[0]

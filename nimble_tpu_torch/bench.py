@@ -16,7 +16,11 @@ byte).  The modes:
   ``--depth`` chunks in flight (dedupe, pack, upload and launch on a
   dispatch thread, collect on a fetch thread, counting on this one), best
   of ``--timed-rounds`` rounds after one warm-up, with the median beside
-  it and ``kernel_ns_per_read``, the device-resident launch time per read;
+  it, ``kernel_ns_per_read`` (the root bench's device-resident launch time
+  per read: queued passes between CUDA events, which on the card also
+  time the host's enqueue of each pass's torch ops) and
+  ``kernel_device_ns_per_read`` (the same pass's kernel time on the card,
+  from a profiler trace; null on the CPU);
   ``--paired`` adds R2 mates, the reverse complements of R1;
 - ``--mesh``: the same loop through ``TorchMeshAlignEngine`` on the mesh
   of the ``torchrun`` ranks (``parallel.mesh``); without a ``torchrun``
@@ -36,9 +40,10 @@ so ``vs_baseline`` divides by the high end of the defended 20k-170k
 reads/s estimate of the reference's single-process throughput
 (BASELINE.md, "Defended baseline estimate"); the row carries the range.
 
-Prints ONE JSON line, the root bench's keys plus ``engine``, ``walk`` and
+Prints ONE JSON line, the root bench's keys plus ``engine``, ``walk``,
 ``device`` (the torch device and, on a card, its name and power limit as
-``nvidia-smi`` reports them).  ``--device cuda`` (the default) on a machine
+``nvidia-smi`` reports them) and, beside ``kernel_ns_per_read``,
+``kernel_device_ns_per_read``.  ``--device cuda`` (the default) on a machine
 without a card exits non-zero and prints no rate: there is no CPU fallback.
 """
 
@@ -75,6 +80,7 @@ from nimble_tpu_torch.parallel.mesh import Mesh, init_runtime, mesh_shape
 from nimble_tpu_torch.pipeline import bam_pipeline, fastq_pipeline
 from nimble_tpu_torch.pipeline.bam_fast import process_fast
 from nimble_tpu_torch.utils.dna import encode_bases, revcomp
+from nimble_tpu_torch.utils.metrics import device_ms
 from nimble_tpu_torch.workload import write_fastq
 
 # High end of the defended 20k-170k reads/s estimate range (BASELINE.md,
@@ -156,15 +162,10 @@ def _elapsed_s(device: torch.device, fn) -> float:
     return start.elapsed_time(end) / 1e3
 
 
-def measure_kernel_ns_per_read(engine, mat, lens, log, n_launches=16):
-    """Device-resident compact pass time, ns/read.
-
-    Packs one ``launch_batch`` of reads (zero rows pad a short batch),
-    uploads it once beside a second buffer of the same values, then queues
-    N launches of the engine's compact pass alternating the two buffers:
-    (wall - one launch) / (N - 1), best of 3, amortizes the submission and
-    excludes every transfer.
-    """
+def _resident_pass(engine, mat, lens):
+    """The compact pass of one ``launch_batch`` of reads on resident
+    buffers: packs the batch (zero rows pad a short one) and uploads it
+    twice; returns (launch, the two buffers)."""
     lb = engine.launch_batch
     bucket_arr = np.asarray(engine.buckets)
     bucket = int(bucket_arr[np.searchsorted(bucket_arr, int(lens.max()))])
@@ -173,7 +174,21 @@ def measure_kernel_ns_per_read(engine, mat, lens, log, n_launches=16):
     buf[:m] = pack_reads(mat[:m], lens[:m], bucket)
     x1 = torch.from_numpy(buf).to(engine.device)
     x2 = x1.clone()  # distinct buffer, same value
-    launch = engine._device_pass(bucket, False)
+    return engine._device_pass(bucket, False), x1, x2
+
+
+def measure_kernel_ns_per_read(engine, mat, lens, log, n_launches=16):
+    """Device-resident compact pass time, ns/read.
+
+    Queues N launches of the engine's compact pass alternating two resident
+    buffers (:func:`_resident_pass`): (wall - one launch) / (N - 1), best
+    of 3, amortizes the submission and excludes every transfer.  The root
+    bench's method: on the card the CUDA events also time the host's
+    enqueue of the pass's torch ops (:func:`measure_kernel_device_ns_per_read`
+    gives the card's own time).
+    """
+    lb = engine.launch_batch
+    launch, x1, x2 = _resident_pass(engine, mat, lens)
     _elapsed_s(engine.device, lambda: launch(x1))  # warm-up
     best = 1e9
     for _ in range(3):
@@ -183,6 +198,22 @@ def measure_kernel_ns_per_read(engine, mat, lens, log, n_launches=16):
         best = min(best, max(wall - one, 0.0) / (n_launches - 1))
     ns = best / lb * 1e9
     log(f"kernel: {best*1e3:.3f} ms / {lb}-read launch = {ns:.0f} ns/read")
+    return ns
+
+
+def measure_kernel_device_ns_per_read(engine, mat, lens, log,
+                                      n_launches=16):
+    """The same compact pass's device time, ns/read: the summed time of its
+    kernels on the card from a torch.profiler trace of N launches
+    (``utils.metrics.device_ms``), without the host's enqueue.  None on the
+    CPU, which has no device time."""
+    if engine.device.type != "cuda":
+        return None
+    launch, x1, _x2 = _resident_pass(engine, mat, lens)
+    ms = device_ms(lambda: launch(x1), n_launches)
+    ns = ms / 1e3 / engine.launch_batch * 1e9
+    log(f"kernel device time: {ms:.3f} ms / {engine.launch_batch}-read "
+        f"launch = {ns:.1f} ns/read")
     return ns
 
 
@@ -584,8 +615,14 @@ def bench_fastq(args, log, engine, workload):
     # apart from every transfer and host stage
     kernel_note = {}
     if not args.mesh:
-        kernel_note = {"kernel_ns_per_read": round(
-            measure_kernel_ns_per_read(engine, mat, lens, log), 1)}
+        ns = measure_kernel_ns_per_read(engine, mat, lens, log)
+        # traced last, so that no profiler session precedes the root
+        # bench's measurement in this process
+        device_ns = measure_kernel_device_ns_per_read(engine, mat, lens, log)
+        kernel_note = {
+            "kernel_ns_per_read": round(ns, 1),
+            "kernel_device_ns_per_read": (
+                None if device_ns is None else round(device_ns, 1))}
 
     t_dispatch, t_collect, t_host = splits[best_i]
     return {

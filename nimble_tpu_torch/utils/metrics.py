@@ -2,9 +2,10 @@
 
 The reference's only observability is println! progress markers (per-1M-read
 blocks, `src/parse/bam.rs:121-127`) plus the forensic TSV itself.  The port
-keeps first-class counters (reads/s per stage) and an optional
+keeps first-class counters (reads/s per stage), an optional
 ``torch.profiler`` trace hook (:func:`profiler_trace`) for on-device
-analysis.
+analysis, and the card's own time of a call from such a trace
+(:func:`device_ms`).
 """
 
 from __future__ import annotations
@@ -99,3 +100,44 @@ def profiler_trace(log_dir: Optional[str]):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def device_us(prof, name: str = "") -> tuple:
+    """(summed device time in us, records) of a ``torch.profiler`` trace's
+    CUDA kernels whose name contains ``name``."""
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA" and name in e.key:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+            count += e.count
+    return total, count
+
+
+def device_ms(fn, iters: int, kernel: str = "") -> float:
+    """Device time per call of ``fn`` on the card from a torch.profiler
+    (CUPTI) trace: the summed duration of the CUDA kernels whose name
+    contains ``kernel`` (all kernels when empty), over ``iters`` calls
+    after one warm-up call.  Unlike CUDA events around the calls it
+    excludes the host's launch gaps between kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    # a trace is taken only when it holds a record of every launch: at
+    # least one a call, and for a named kernel a whole number a call.
+    # Traces on an H100 have come back missing about a quarter of a
+    # kernel's records, for no cause found yet; such a trace is retaken,
+    # at most four times, and said so
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = device_us(prof, kernel)
+        if count >= iters and (not kernel or count % iters == 0):
+            return total_us / 1e3 / iters
+        print(f"[profiler] trace {attempt + 1} of {kernel or 'all kernels'!r}"
+              f" holds {count} kernel records for {iters} calls; retaken")
+    raise AssertionError(f"profiler traces of {kernel!r} miss launches")
