@@ -8,38 +8,47 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases; each one passes or the script exits non-zero (nothing is caught,
 nothing falls back to the CPU):
 
-1. build: compile every csrc/*.cu kernel (fused_span_walk, double_walk,
-   gather_rows) with nvcc for sm_90a from the checkout's sources, one nvcc
-   per source, all started together, and the port's C++ host library
+1. build: compile every csrc/*.cu kernel (probe_walk_filter,
+   fused_span_walk, double_walk, gather_rows; the first two include
+   csrc/span_walk.cuh) with nvcc for sm_90a from the checkout's sources, one
+   nvcc per source, all started together, and the port's C++ host library
    (csrc/nimble_host.cpp, g++) beside them;
 2. kernel: each kernel against its plain torch version on the same CUDA
-   tensors at the main path's shapes (B = 8192 reads, C = 8 candidates,
-   Lmax = 92 and 96, candidates probed from a real index: for
-   fused_span_walk the uploaded packed reads, the probe's candidates and
-   the tables; for double_walk the masks of ops.span_walk.rel_walk_masks at
-   l_steps = Lmax - k, and a case with l_steps = 0; for the three gathers
-   of gather_rows the gather probe's (4096, 8) table and 65,536 rows, and a
-   (1024, 8) table under 48 KiB of shared memory, take and taa also on a
-   512 KiB table; taa on k_taa's own broadcast index (a view) and on a
-   general (M, W) index, lane on a general index and on the broadcast
-   index materialised, as the probe passes it); outputs must be
-   bit-equal; both timed per call with CUDA events (``ms``, ``plain_ms``:
-   what a caller waits, host launch gaps included) and by device time from
-   a torch.profiler trace (``device_ms``, ``plain_device_ms``), beside the
-   least time the card could take (``bound_ms``: the kernel's bytes, each
-   input read once and each output written once, over HBM_BYTES_PER_S, or
-   its operations over OPS_PER_S, whichever is larger); the gathers also
-   against the one torch call that computes them (``library_ms``:
-   ``index_select`` for take, ``torch.gather`` for taa and lane),
-   fused_span_walk also on its first 1,024 reads
-   (``small_batch_device_ms``: the launch's latency), and double_walk and
-   the gathers also with the L2 cache flushed before every call
-   (``cold_device_ms``: a 128 MiB buffer is written between launches; the
-   warm time reads inputs that fit in the 50 MB L2).  A gather's bound
-   counts the distinct bytes of its function's inputs: a broadcast index
-   counts its M indices once.  Each gather row names the design its
-   kernel ran (``gather.rows_design`` for take and taa: unstaged or
-   per-block) and the shared memory a block held;
+   tensors at the main path's shapes.  probe_walk_filter (the main path's
+   whole device pass in one launch) against its plain twin (the torch chain
+   of ops/compact.py and ops/full.py), compact (B, 2) and full (B, 3) mode,
+   on five inputs of 8,192 reads of 90 bp at bucket 92: the bench library
+   (max_probe 1), the MHC-scale library (max_probe 2), the 4 x bench stack
+   and the bench + mhc stack (every read against every library, as the
+   multi-library pass sends them) and the bench library with planted
+   fingerprint collisions, each also with its CUDA kernels per call counted
+   in a profiler trace (``kernels_per_call``, ``plain_kernels_per_call``);
+   then (B = 8192 reads, C = 8 candidates, Lmax = 92 and 96, candidates
+   probed from a real index): for fused_span_walk the uploaded packed
+   reads, the probe's candidates and the tables; for double_walk the masks
+   of ops.span_walk.rel_walk_masks at l_steps = Lmax - k, and a case with
+   l_steps = 0; for the three gathers of gather_rows the gather probe's
+   (4096, 8) table and 65,536 rows, and a (1024, 8) table under 48 KiB of
+   shared memory, take and taa also on a 512 KiB table; taa on k_taa's own
+   broadcast index (a view) and on a general (M, W) index, lane on a
+   general index and on the broadcast index materialised, as the probe
+   passes it); outputs must be bit-equal; both timed per call with CUDA
+   events (``ms``, ``plain_ms``: what a caller waits, host launch gaps
+   included) and by device time from a torch.profiler trace
+   (``device_ms``, ``plain_device_ms``), beside the least time the card
+   could take (``bound_ms``: the kernel's bytes, each input read once and
+   each output written once, over HBM_BYTES_PER_S, or its operations over
+   OPS_PER_S, whichever is larger); the gathers also against the one torch
+   call that computes them (``library_ms``: ``index_select`` for take,
+   ``torch.gather`` for taa and lane), fused_span_walk also on its first
+   1,024 reads (``small_batch_device_ms``: the launch's latency), and
+   probe_walk_filter, double_walk and the gathers also with the L2 cache
+   flushed before every call (``cold_device_ms``: a 128 MiB buffer is
+   written between launches; the warm time reads inputs that fit in the
+   50 MB L2).  A gather's bound counts the distinct bytes of its function's
+   inputs: a broadcast index counts its M indices once.  Each gather row
+   names the design its kernel ran (``gather.rows_design`` for take and
+   taa: unstaged or per-block) and the shared memory a block held;
 3. gather: the port's gather probe (``nimble_tpu_torch.probe_gather``, the
    entry point of the three gather kernels) end to end on the card; every
    ``match=`` must be true;
@@ -134,9 +143,18 @@ nothing falls back to the CPU):
    campaign (process_fast's forensic bytes equal to bam_pipeline's), each
    at a fixed trial count and seed; then the mesh trials of the engine and
    FASTQ campaigns on two ranks of this script sharing the card (gloo).
-   Each campaign must end with zero divergences and launch both walk
-   kernels (on both ranks in the mesh block); a ``{"fuzz": [...]}`` line
+   Each campaign must end with zero divergences and launch each walk's
+   kernel (on both ranks in the mesh block); a ``{"fuzz": [...]}`` line
    gives each campaign's trials, reads or records, seconds and launches.
+
+The single-device passes launch probe_walk_filter for ``--walk fused`` and
+double_walk for ``--walk double``: phases 4-8, 10's hosts, 11's entry, 12
+(its ``--mesh`` is a (1, 1) mesh, which hands every call to the
+single-device engine), 13's in-process campaigns, and the stacked
+multi-library pass on each rank of a mesh.  The mesh's shard step (phase
+9's one-library runs, 11's dryrun ranks, 13's two-rank mesh trials)
+launches fused_span_walk or double_walk.  Each run's counts are set to 0
+just before it and read just after it.
 
 Cut to fit the time limit: the MHC BAM runs read 131,072 records (16,384
 groups) rather than 524,288; that cell is bound by the host orientation
@@ -180,7 +198,12 @@ MULTI_FASTQ = (
 )
 MULTI_BAM_GROUPS = 16384
 MULTI_BAM_TRIMS = "40:0.9,30:0.5,40:0.9,30:0.5"  # the JSON's is 40:0.9
-WALK_KERNELS = {"fused": "fused_span_walk", "double": "double_walk"}
+# the kernel each walk launches on the single-device passes (a (1, 1) mesh
+# and the stacked multi-library pass, on a mesh too, are such passes), and
+# on the mesh's shard step, which all-reduces the probe between probe and
+# walk
+WALK_KERNELS = {"fused": "probe_walk_filter", "double": "double_walk"}
+MESH_WALK_KERNELS = {"fused": "fused_span_walk", "double": "double_walk"}
 MESH_RANKS = 2           # ranks of the mesh phase, sharing the one card
 MESH_TIMEOUT_S = 900     # the mesh phase's processes are killed after this
 MULTIHOST_PAIRS = 1 << 17  # pairs of the multihost phase's paired FASTQ
@@ -190,6 +213,11 @@ GATHER_KERNELS = ("gather_take", "gather_taa", "gather_lane")
 GATHER_SHAPES = ((4096, 8, 65536), (1024, 8, 65536))  # (N, W, M)
 # take and taa also on a 512 KiB table, over the 227 KiB one block can hold
 GATHER_BIG = (16384, 8, 65536)
+PROBE_WALK_CASE_KEYS = ("input", "mode", "B", "max_probe", "device_ms",
+                        "cold_device_ms", "ms", "plain_ms", "plain_device_ms",
+                        "kernels_per_call", "plain_kernels_per_call",
+                        "bound_ms", "bound_by", "bound_bytes", "bound_ops",
+                        "bound_share", "cold_bound_share")
 GATHER_CASE_KEYS = ("N", "W", "M", "case", "design", "smem_kib",
                     "device_ms", "cold_device_ms", "plain_device_ms",
                     "library_device_ms", "bound_ms", "bound_bytes",
@@ -202,6 +230,7 @@ HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 L2_FLUSH_BYTES = 128 << 20  # written between launches for a cold L2
 REPLACES = {
+    "probe_walk_filter": "nimble_tpu/ops/engine_fast.py:1146",
     "fused_span_walk": "nimble_tpu/ops/pallas_fused.py:130",
     "double_walk": "nimble_tpu/ops/pallas_walk.py:75",
     "gather_take": "scripts/probe_mosaic_gather.py:75",
@@ -215,10 +244,11 @@ BENCH_MODES = (  # (label, nimble_tpu_torch.bench arguments, walk)
     ("e2e", ["--e2e"], "fused"),
     ("bam", ["--bam"], "fused"),
     ("libraries 4", ["--libraries", "4"], "fused"),
-    ("mesh", ["--mesh"], "fused"),
+    ("mesh", ["--mesh"], "fused"),  # one rank: a (1, 1) mesh
 )
 # phase 13: each fuzz campaign on the card with both walks, at a fixed
-# trial count, and the mesh trials of two of them on MESH_RANKS ranks
+# trial count (its mesh trials on a (1, 1) mesh), and the mesh trials of
+# two of them on MESH_RANKS ranks
 FUZZ = (("differential", 60), ("fastq", 300), ("bam", 150))
 FUZZ_MESH = (("differential", 4), ("fastq", 4))
 # the size at which each bench mode's card results are held to the CPU's
@@ -294,17 +324,20 @@ class Counters:
     def __init__(self):
         from nimble_tpu_torch.ops import gather
         from nimble_tpu_torch.ops.double_walk import double_walk
+        from nimble_tpu_torch.ops.probe_walk import probe_walk
         from nimble_tpu_torch.ops.span_walk import fused_span_walk
 
-        self.wrappers = {"fused_span_walk": fused_span_walk,
+        self.wrappers = {"probe_walk_filter": probe_walk,
+                         "fused_span_walk": fused_span_walk,
                          "double_walk": double_walk,
                          **{n: getattr(gather, n) for n in GATHER_KERNELS}}
         self.main_path = {name: 0 for name in self.wrappers}
 
     @contextlib.contextmanager
     def run(self, label: str, walk: str = "", kernels=()):
-        """Counts of one main-path run: the run's walk kernel (or each of
-        ``kernels``) must launch and every other kernel must not."""
+        """Counts of one main-path run: the kernel of the run's walk on a
+        single device (WALK_KERNELS; or each of ``kernels``) must launch and
+        every other kernel must not."""
         import torch
 
         want = set(kernels) | ({WALK_KERNELS[walk]} if walk else set())
@@ -383,13 +416,55 @@ def _bound(n_bytes: int, n_ops: int, device: float) -> dict:
             "bound_share": bound / device}
 
 
+def _walk_steps(cand, t, bucket: int):
+    """(live lanes, lane steps, read steps) of the walk on these
+    candidates: the lanes live at the start; each such lane's valid steps,
+    where it is alive and its read active (forward anchor + k <= p <
+    min(read_len, the row's end), left max(0, -base) <= p < min(anchor,
+    Lmax - k), base = off - anchor), the walk of ``csrc/span_walk.cuh``;
+    per read the steps of the union of its live lanes' intervals, where
+    the group votes.  A lane that dies on the way is counted to its end."""
+    import torch
+
+    k, P = t.k, bucket - t.k + 1
+    n_rows = t.row_starts.shape[-1]
+    rows = (cand.rows if cand.lib is None
+            else cand.lib[:, None] * n_rows + cand.rows)
+    row_len = t.row_lengths.reshape(-1)[rows].long()
+    anchor = cand.anchor.long()[:, None]
+    base = cand.offs - anchor
+    f_lo = (anchor + k).clamp(k, bucket)
+    f_hi = torch.minimum((row_len - base).clamp(-1, bucket),
+                         cand.read_lens.long()[:, None].clamp(max=bucket))
+    l_lo = (-base).clamp(0, bucket)
+    l_hi = anchor.clamp(0, P - 1)
+    live = cand.live0
+    lane_steps = torch.where(
+        live, (f_hi - f_lo).clamp(min=0) + (l_hi - l_lo).clamp(min=0), 0)
+    # a read's forward intervals share their start and its left intervals
+    # their end
+    read_steps = ((torch.where(live, f_hi, 0).amax(1) - f_lo[:, 0])
+                  .clamp(min=0)
+                  + (l_hi[:, 0] - torch.where(live, l_lo, bucket).amin(1))
+                  .clamp(min=0))
+    return live, lane_steps, read_steps
+
+
+def _walk_ops(cand, t, bucket: int) -> int:
+    """32-bit operations of the walk on these candidates: the word compare
+    (5 per live lane and word) and the steps (3 per live lane and valid
+    step, 4 per read and step of its union; ``_walk_steps``)."""
+    live, lane_steps, read_steps = _walk_steps(cand, t, bucket)
+    nr = (bucket + 15) // 16
+    return (5 * nr * int(live.sum()) + 3 * int(lane_steps.sum())
+            + 4 * int(read_steps.sum()))
+
+
 def _fused_walk_work(cand, t, bucket: int):
     """(bytes, operations) the fused walk needs on this run's candidates:
     each input read once (packed rows, anchor, the (B, C) row ids, offsets
     and live0, the table entries of the distinct rows and words the windows
-    touch), each output written once; 32-bit operations of the word compare
-    (5 per candidate and word) and of the steps (3 per candidate and 4 per
-    read, 2 * (Lmax - k) steps)."""
+    touch), each output written once; the operations of ``_walk_ops``."""
     import torch
 
     B, C = cand.rows.shape
@@ -403,8 +478,7 @@ def _fused_walk_work(cand, t, bucket: int):
     n_in = (cand.packed.numel() + 8 * B + 17 * B * C + 8 * rows.numel()
             + 4 * words.numel())
     n_out = B * C + 8 * B
-    steps = 2 * (bucket - t.k)
-    return n_in + n_out, B * C * (5 * nr + 3 * steps) + 4 * B * steps
+    return n_in + n_out, _walk_ops(cand, t, bucket)
 
 
 def _double_walk_work(masks):
@@ -517,6 +591,216 @@ def phase_kernel(seed: int):
                   f"{row['bound_share']:.3f} of it{cold}")
             rows["double_walk"].append(row)
     return rows
+
+
+def _probe_walk_inputs(seed: int) -> list:
+    """The probe_walk_filter kernel's phase-2 inputs, on the card: (label,
+    packed, tables, scalars, s_min) with KERNEL_BATCH reads of 90 bp
+    at bucket 92 each: bench (max_probe 1), mhc (max_probe 2), the 4 x
+    bench stack and the bench + mhc stack (every row against every
+    library, as the multi-library pass sends them), and the bench library
+    with every other read's first k-mer forged into its bucket's lane 0 (a
+    fingerprint collision the probe must flag)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nimble_tpu_torch.config import AlignFilterConfig
+    from nimble_tpu_torch.index.build import build_index
+    from nimble_tpu_torch.models.aligner import pack_reads
+    from nimble_tpu_torch.ops.device_index import (
+        build_bucketed_index,
+        hash_kmer,
+        kmer_fp,
+    )
+    from nimble_tpu_torch.ops.device_tables import (
+        FilterScalars,
+        s_min_table,
+        stack_tables,
+        tables_from_bucketed_index,
+    )
+    from nimble_tpu_torch.workload import generate
+
+    bucket = KERNEL_BUCKETS[0]
+    lens = np.full(KERNEL_BATCH, 90, dtype=np.int32)
+
+    def config(i):  # the bench's gates; odd libraries discard multiples
+        return AlignFilterConfig(score_percent=0.33, score_threshold=50,
+                                 num_mismatches=1, max_hits_to_report=10,
+                                 discard_multiple_matches=i % 2 == 1)
+
+    def library(seed_, n_feat, feat_len):
+        _f, doubled, mat, _ = generate(n_features=n_feat, feat_len=feat_len,
+                                       read_len=90, n_reads=KERNEL_BATCH,
+                                       seed=seed_)
+        index = build_index(doubled)
+        return index, build_bucketed_index(index), mat
+
+    def single(lib_):
+        index, bidx, mat = lib_
+        cfg = config(0)
+        return (torch.from_numpy(pack_reads(mat, lens, bucket)).cuda(),
+                tables_from_bucketed_index(bidx, "cuda"),
+                FilterScalars.from_config(cfg),
+                torch.from_numpy(s_min_table(cfg.score_percent, bucket))
+                .cuda())
+
+    def stacked(libs):
+        st = stack_tables([x[0] for x in libs], [x[1] for x in libs],
+                          [config(i) for i in range(len(libs))], "cuda")
+        mat = np.concatenate([x[2][i::len(libs)] for i, x in
+                              enumerate(libs)])[:KERNEL_BATCH]
+        return (torch.from_numpy(pack_reads(mat, lens, bucket)).cuda(), st,
+                st.scalars, st.s_min(bucket))
+
+    bench = library(seed, 50, 500)
+    mhc = library(seed, 1000, 1500)
+    benches = [bench] + [library(seed + i, 50, 500) for i in (1, 2, 3)]
+    index, bidx, mat = bench
+    fp = bidx.bkey_fp.copy()
+    k, mask = bidx.k, bidx.n_buckets - 1
+    weights = 4 ** np.arange(k // 2 - 1, -1, -1, dtype=np.uint64)
+    for row in mat[::2]:  # forge the first k-mer's fingerprint into lane 0
+        hi = np.uint32((row[: k // 2].astype(np.uint64) * weights).sum())
+        lo = np.uint32((row[k // 2 : k].astype(np.uint64) * weights).sum())
+        b = int(hash_kmer(np.array([lo]), np.array([hi]))[0]) & mask
+        fp[b, 0] = kmer_fp(np.array([lo]), np.array([hi]))[0]
+    forged = dataclasses.replace(bidx, bkey_fp=fp)
+    return [("bench", *single(bench)), ("mhc", *single(mhc)),
+            ("4 x bench", *stacked(benches)),
+            ("bench + mhc", *stacked([bench, mhc])),
+            ("planted collisions", *single((index, forged, mat)))]
+
+
+def _probe_walk_work(packed, t, bucket: int, c_max: int, full: bool):
+    """(bytes, operations) the probe_walk_filter pass needs on these
+    inputs (stacked tables: every row against every library).  Bytes, each
+    read once: the packed rows; the distinct fingerprint rows the
+    first-hit search reads (every hop of every position before the anchor,
+    the hops up to the hit at it, all valid positions of a read without
+    one); the distinct anchor slots' key halves, bstart and bcount; the
+    live candidates' distinct postings, row spans and reference windows;
+    the distinct s_min entries; the results written.  Operations: ~40
+    32-bit operations a probed position (two key halves, two hashes) and W
+    compares a hop read, plus the walk's of ``_walk_ops`` (live lanes
+    only, as the bytes count them)."""
+    import torch
+
+    from nimble_tpu_torch.ops.compact import every_library, probe_candidates
+    from nimble_tpu_torch.ops.probe import probe_encoded
+    from nimble_tpu_torch.ops.span_walk import unpack_reads
+
+    rows_in, lib = every_library(packed, t)
+    reads, read_lens = unpack_reads(rows_in, bucket)
+    k, W, mp = t.k, t.bkey_fp.shape[-1], t.max_probe
+    m, h, _lo, _hi, hop = probe_encoded(reads, read_lens, t,
+                                        p_limit=bucket - k + 1, lib=lib)
+    P = h.shape[1]
+    has = m > 0
+    anchor = torch.where(has, P - (m >> 8), 0)
+    n_valid = (read_lens.long() - k + 1).clamp(0, P)
+    last = torch.where(has, anchor, n_valid - 1)  # last position probed
+    pos = torch.arange(P, device=packed.device)
+    probed = pos[None, :] <= last[:, None]                      # (B, P)
+    at_anchor = has[:, None] & (pos[None, :] == anchor[:, None])
+    n_hops = torch.where(at_anchor, hop + 1, mp)                # (B, P)
+    hops = torch.arange(mp, device=packed.device)
+    read = probed[:, :, None] & (hops < n_hops[:, :, None])     # (B, P, mp)
+    n_buckets = t.bucket_mask + 1
+    libs = torch.zeros_like(m) if lib is None else lib
+    fp_rows = ((libs[:, None, None] * n_buckets
+                + ((h[:, :, None] + hops) & t.bucket_mask))[read]).unique()
+    at = anchor[:, None]
+    bucket_sel = torch.where(has, (h.gather(1, at) + hop.gather(1, at))[:, 0]
+                             & t.bucket_mask, 0)
+    lane_sel = torch.where(has, W - (m & 0xFF), 0)
+    slots = ((libs * n_buckets + bucket_sel) * W + lane_sel).unique()
+    cand = probe_candidates(rows_in, t, bucket=bucket, c_max=c_max, lib=lib)
+    live = cand.live0
+    c_idx = torch.arange(c_max, device=packed.device)
+    n_post = t.postings_row.shape[-1]
+    postings = (libs[:, None] * n_post + (cand.astart.long()[:, None] + c_idx)
+                .clamp(0, n_post - 1))[live].unique()
+    n_rows = t.row_starts.shape[-1]
+    row_ids = (libs[:, None] * n_rows + cand.rows)
+    spans = row_ids[live].unique()
+    nr = (bucket + 15) // 16
+    n_words = t.ref_codes_packed.shape[-1]
+    start = (t.row_starts.reshape(-1)[row_ids].long() + cand.offs
+             - cand.anchor[:, None] + t.ref_pad)
+    w0 = (start >> 4).clamp(0, n_words - nr - 1)
+    words = (libs[:, None, None] * n_words + w0[..., None]
+             + torch.arange(nr + 1, device=packed.device))[live].unique()
+    n_smin = 0 if full else int(torch.unique(
+        libs * (bucket + 1) + read_lens.long().clamp(0, bucket)).numel())
+    B = rows_in.shape[0]
+    n_bytes = (packed.numel() + 4 * W * fp_rows.numel() + 16 * slots.numel()
+               + 8 * postings.numel() + 8 * spans.numel()
+               + 4 * words.numel() + 4 * n_smin + 4 * B * (3 if full else 2))
+    n_ops = (40 * int(probed.sum()) + W * int(read.sum())
+             + _walk_ops(cand, t, bucket))
+    return n_bytes, n_ops
+
+
+def phase_probe_walk_kernel(seed: int):
+    """The probe_walk_filter kernel against its plain twin, bit for bit, on
+    the five inputs of ``_probe_walk_inputs`` in both modes (compact (B, 2)
+    and full (B, 3)): device time warm and L2-cold, per-call time, CUDA
+    kernels per call of each, and the bound.  Returns its rows."""
+    import torch
+
+    from nimble_tpu_torch.ops.probe_walk import probe_walk, probe_walk_plain
+
+    rows = []
+    for label, packed, t, scalars, s_min in _probe_walk_inputs(seed):
+        for full in (False, True):
+            gates = {} if full else {"scalars": scalars, "s_min": s_min}
+            kw = dict(bucket=KERNEL_BUCKETS[0], c_max=8, **gates)
+
+            def kernel(kw=kw, packed=packed, t=t):
+                return probe_walk(packed, t, **kw)
+
+            def plain(kw=kw, packed=packed, t=t):
+                return probe_walk_plain(packed, t, **kw)
+
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            if got.shape != want.shape or not torch.equal(got, want):
+                bad = int((got != want).any(dim=1).sum()) \
+                    if got.shape == want.shape else -1
+                raise AssertionError(
+                    f"probe_walk_filter {label} full={full}: kernel != plain"
+                    f" ({bad} rows differ)")
+            mode = "full" if full else "compact"
+            row = {"input": label, "mode": mode, "Lmax": KERNEL_BUCKETS[0],
+                   "B": int(got.shape[0]), "max_probe": t.max_probe,
+                   "max_abs_err": 0,
+                   **_timings(kernel, plain, "probe_walk_filter_kernel"),
+                   "kernels_per_call": kernels_per_call(kernel, 20),
+                   "plain_kernels_per_call": kernels_per_call(plain, 3),
+                   "library_ms": None}
+            row.update(_bound(*_probe_walk_work(packed, t, KERNEL_BUCKETS[0],
+                                                8, full), row["device_ms"]))
+            cold = _cold(row, kernel, "probe_walk_filter_kernel")
+            flags = got[:, 1]
+            anchored = int(((flags >> (16 if full else 18)) & 1).sum())
+            host = int(((flags >> 17) & 1).sum())
+            rows.append(row)
+            print(f"[kernel] probe_walk_filter {label}, {mode}, "
+                  f"{row['B']} reads, max_probe {t.max_probe}: bit-equal to "
+                  f"plain ({anchored} anchored, {host} to host rescue); "
+                  f"device time (profiler): kernel {row['device_ms']:.4f} ms,"
+                  f" plain {row['plain_device_ms']:.3f} ms; per call (CUDA "
+                  f"events): kernel {row['ms']:.4f} ms, plain "
+                  f"{row['plain_ms']:.3f} ms; CUDA kernels per call: "
+                  f"{row['kernels_per_call']:g}, plain "
+                  f"{row['plain_kernels_per_call']:g}; bound "
+                  f"{row['bound_ms']:.5f} ms by {row['bound_by']} "
+                  f"({row['bound_bytes']} bytes, {row['bound_ops']} ops), "
+                  f"device time at {row['bound_share']:.3f} of it{cold}")
+    return {"probe_walk_filter": rows}
 
 
 def _gather_cases(gather, N, W, M, tab, idx, idx2):
@@ -786,7 +1070,7 @@ def phase_multi_fastq(tmp: str, seed: int, n_reads: int, counters: Counters):
         singles = [run(f"single{i}", [lib], "cuda", "fused")
                    for i, lib in enumerate(wl.libraries)]
         single_tsvs = [s[0][0] for s in singles]
-        single_launches = [s[2]["fused_span_walk"] for s in singles]
+        single_launches = [s[2][WALK_KERNELS["fused"]] for s in singles]
         if any(t.count(b"\n") < 2 for t in single_tsvs):
             raise AssertionError(f"multi-fastq {name}: a library counted "
                                  "nothing")
@@ -858,7 +1142,7 @@ def phase_multi_bam(tmp: str, seed: int, counters: Counters):
         if rc != 0:
             raise AssertionError(f"multi-bam {tag}: rc {rc}")
         return ([_gunzip(o) for o in outs], wall,
-                dict(counts).get("fused_span_walk", 0))
+                dict(counts).get(WALK_KERNELS["fused"], 0))
 
     uniform = run("cuda_uniform", wl.libraries, "cuda")
     uniform_cpu = run("cpu_uniform", wl.libraries, "cpu")
@@ -1373,7 +1657,10 @@ def phase_mesh(tmp: str, counters: Counters):
     rows = []
     for i, (case, walk, shape, outs) in enumerate(cases):
         per_rank = [rep["runs"][i] for rep in reports]
-        kernel = WALK_KERNELS[walk]
+        # the stacked pass of several libraries runs on each rank's share
+        # as a single-device pass; one library walks through the shard step
+        kernel = (WALK_KERNELS if case == "4 x bench" else
+                  MESH_WALK_KERNELS)[walk]
         for rank, r in enumerate(per_rank):
             others = {n: v for n, v in r["launches"].items()
                       if n != kernel and v}
@@ -1478,13 +1765,13 @@ def phase_multihost(tmp: str, seed: int, counters: Counters):
             raise AssertionError(f"multihost host {rep['rank']} imported "
                                  f"{rep['leaked'][:5]}")
     rows = []
+    kernel = WALK_KERNELS["fused"]  # each host is a single-device engine
     for i, (case, _argv, o, want, single_wall, units) in enumerate(cases):
         per_host = [rep["runs"][i] for rep in reports]
         for host, r in enumerate(per_host):
             others = {n: v for n, v in r["launches"].items()
-                      if n != "fused_span_walk" and v}
-            if (r["rc"] != 0 or r["launches"]["fused_span_walk"] <= 0
-                    or others):
+                      if n != kernel and v}
+            if r["rc"] != 0 or r["launches"][kernel] <= 0 or others:
                 raise AssertionError(f"multihost {case} host {host}: rc "
                                      f"{r['rc']}, launches {r['launches']}")
         got = _gunzip(o) if o.endswith(".gz") else _tsv_lines(o)[0]
@@ -1493,12 +1780,12 @@ def phase_multihost(tmp: str, seed: int, counters: Counters):
                                  "single-device card run")
         if any(".part" in name for name in os.listdir(d)):
             raise AssertionError(f"multihost {case}: part files remain")
-        counters.main_path["fused_span_walk"] += sum(
-            r["launches"]["fused_span_walk"] for r in per_host)
+        counters.main_path[kernel] += sum(
+            r["launches"][kernel] for r in per_host)
         hosts = [{"wall_s": r["wall_s"],
                   **dict(zip(("split_s", "owned"),
                              _timing_fields(r["timing"]))),
-                  "walk_launches": r["launches"]["fused_span_walk"]}
+                  "walk_launches": r["launches"][kernel]}
                  for r in per_host]
         row = {"case": case, "hosts": 2, "backend": "gloo",
                "wall_s": max(h["wall_s"] for h in hosts),
@@ -1509,7 +1796,7 @@ def phase_multihost(tmp: str, seed: int, counters: Counters):
             split = ", ".join(f"{k} {v} s" for k, v in h["split_s"].items())
             print(f"[multihost] {case}, host {host} of 2: CLI {h['wall_s']:.2f}"
                   f" s; split {split}; {h['owned']} {units} owned; "
-                  f"fused_span_walk launches {h['walk_launches']}")
+                  f"{kernel} launches {h['walk_launches']}")
         print(f"[multihost] {case}: two hosts {row['wall_s']:.2f} s (single "
               f"device {single_wall:.2f} s); output == the single-device "
               f"card run byte for byte; {smi}")
@@ -1524,8 +1811,8 @@ def phase_entry(counters: Counters):
     """The driver entries (``nimble_tpu_torch.graft_entry``): ``entry()``'s
     step on the card equal to ``entry(device="cpu")``'s (the plain
     versions), and ``dryrun_multichip(2)`` on two ranks sharing the card
-    (gloo), with the walk kernel launching on both.  Returns a result
-    row."""
+    (gloo), with the shard step's fused_span_walk and the stacked pass's
+    probe_walk_filter launching on both.  Returns a result row."""
     import torch
 
     from nimble_tpu_torch import graft_entry
@@ -1541,21 +1828,26 @@ def phase_entry(counters: Counters):
     t0 = time.perf_counter()
     reports = graft_entry.dryrun_multichip(MESH_RANKS)
     wall = time.perf_counter() - t0
-    launches = [r["launches"]["fused_span_walk"] for r in reports]
+    # every rank walks its shard on the mesh and its share of the stacked
+    # multi-library pass (probe_walk_filter); rank 0 also runs the
+    # single-device engines its checks compare with
+    launches = [r["launches"] for r in reports]
     for r in reports:
-        if (r["leaked"] or r["launches"]["fused_span_walk"] <= 0
-                or r["launches"]["double_walk"]):
+        want = {"fused_span_walk", "probe_walk_filter"}
+        if (r["leaked"] or any(r["launches"][n] <= 0 for n in want)
+                or any(v for n, v in r["launches"].items() if n not in want)):
             raise AssertionError(f"dryrun rank {r['rank']}: launches "
                                  f"{r['launches']}, imported "
                                  f"{r['leaked'][:5]}")
-    counters.main_path["fused_span_walk"] += sum(launches)
+        for name, count in r["launches"].items():
+            counters.main_path[name] += count
     checks = reports[0]["checks"]
     print(f"[entry] entry(): ({got.shape[0]}, {got.shape[1]}) int32 on the "
           f"card == entry(device='cpu'); launches {dict(counts)}")
     print(f"[entry] dryrun_multichip({MESH_RANKS}): {checks} on "
           f"{reports[0]['device']} ({reports[0]['backend']}), == the "
-          f"single-device engines field for field; fused_span_walk launches "
-          f"per rank {launches}; {wall:.2f} s, start-up included")
+          f"single-device engines field for field; launches per rank "
+          f"{launches}; {wall:.2f} s, start-up included")
     return {"entry_launches": dict(counts), "dryrun_ranks": MESH_RANKS,
             "dryrun_checks": checks, "dryrun_wall_s": wall,
             "dryrun_launches_per_rank": launches}
@@ -1611,11 +1903,40 @@ def phase_bench(counters: Counters):
     return rows
 
 
+def kernels_per_call(fn, iters: int) -> float:
+    """CUDA kernel records per call of ``fn`` in a torch.profiler trace of
+    ``iters`` calls, after one warm-up call.  A call launches a whole
+    number of kernels, at least one, so a trace whose records are not a
+    whole positive number a call missed some (as ``device_ms``'s traces
+    sometimes do) and is retaken, at most four times; the last count
+    stands, and is said so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from nimble_tpu_torch.utils.metrics import device_us
+
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        count = device_us(prof)[1]
+        if count >= iters and count % iters == 0:
+            break
+        print(f"[profiler] kernel count trace {attempt + 1} holds {count} "
+              f"records for {iters} calls"
+              + ("; retaken" if attempt < 4 else "; kept"))
+    return count / iters
+
+
 def _bench_pass_times(bench) -> dict:
     """What one compact pass of the default mode (KERNEL_BATCH bench reads
-    at bucket 92, the pass ``kernel_ns_per_read`` queues) costs its caller:
-    the time per call between CUDA events, per read (its device time is
-    the row's ``kernel_device_ns_per_read``)."""
+    at bucket 92, the pass ``kernel_ns_per_read`` queues, on resident
+    buffers) costs: its device time (all its kernels, profiler), its time
+    per call between CUDA events, and its CUDA kernels per pass (profiler
+    records).  ``bench`` is the ``nimble_tpu_torch.bench`` module."""
     import torch
 
     from nimble_tpu_torch.models.aligner import TorchAlignEngine, pack_reads
@@ -1625,10 +1946,17 @@ def _bench_pass_times(bench) -> dict:
     packed = torch.from_numpy(pack_reads(mat, lens, 92)).cuda()
     launch = engine._device_pass(92, False)
     call = cuda_ms(lambda: launch(packed), 50)
-    out = {"pass_call_ns_per_read": call / KERNEL_BATCH * 1e6}
-    print(f"[bench] one compact pass of {KERNEL_BATCH} bench reads: per call "
-          f"{call:.3f} ms (CUDA events) = {out['pass_call_ns_per_read']:.1f} "
-          "ns/read")
+    dev = device_ms(lambda: launch(packed), 50)
+    n_kernels = kernels_per_call(lambda: launch(packed), 20)
+    out = {"pass_call_ms": call, "pass_device_ms": dev,
+           "pass_kernels": n_kernels,
+           "pass_call_ns_per_read": call / KERNEL_BATCH * 1e6,
+           "pass_device_ns_per_read": dev / KERNEL_BATCH * 1e6}
+    print(f"[bench] one compact pass of {KERNEL_BATCH} bench reads: device "
+          f"time {dev:.4f} ms (profiler) = "
+          f"{out['pass_device_ns_per_read']:.2f} ns/read; per call "
+          f"{call:.4f} ms (CUDA events) = {out['pass_call_ns_per_read']:.2f} "
+          f"ns/read; {n_kernels:g} CUDA kernels per pass")
     return out
 
 
@@ -1643,18 +1971,18 @@ def phase_fuzz(tmp: str, seed: int, counters: Counters):
     import torch
 
     smi = nvidia_smi()
-    walks = tuple(WALK_KERNELS.values())
+    kernels = tuple(WALK_KERNELS.values())
     rows = []
     for name, trials in FUZZ:
         argv = ["--walk", "both", "--trials", str(trials), "--seed",
                 str(seed)]
         t0 = time.perf_counter()
-        with counters.run(f"fuzz {name}", kernels=walks) as counts:
+        with counters.run(f"fuzz {name}", kernels=kernels) as counts:
             summary = importlib.import_module(
                 f"nimble_tpu_torch.fuzz.{name}").run(argv)
             torch.cuda.synchronize()
         rows.append(_fuzz_row(summary, argv, 1, time.perf_counter() - t0,
-                              dict(counts), smi))
+                              dict(counts), kernels, smi))
     d = os.path.join(tmp, "fuzz_mesh")
     os.makedirs(d)
     runs = [{"kind": "fuzz", "campaign": name, "argv": [
@@ -1665,6 +1993,7 @@ def phase_fuzz(tmp: str, seed: int, counters: Counters):
         if rep["leaked"]:
             raise AssertionError(f"fuzz mesh rank {rep['rank']} imported "
                                  f"{rep['leaked'][:5]}")
+    walks = tuple(MESH_WALK_KERNELS.values())
     for i, (name, _trials) in enumerate(FUZZ_MESH):
         per_rank = [rep["runs"][i] for rep in reports]
         for rank, r in enumerate(per_rank):
@@ -1675,16 +2004,17 @@ def phase_fuzz(tmp: str, seed: int, counters: Counters):
             counters.main_path[kernel] += sum(r["launches"][kernel]
                                               for r in per_rank)
         launches = {k: sum(r["launches"][k] for r in per_rank)
-                    for k in walks}
+                    for k in counters.main_path}
         rows.append(_fuzz_row(per_rank[0]["summary"], runs[i]["argv"],
                               MESH_RANKS, per_rank[0]["wall_s"], launches,
-                              smi))
+                              walks, smi))
     return rows
 
 
 def _fuzz_row(summary: dict, argv, ranks: int, wall: float, launches: dict,
-              smi: str) -> dict:
-    """A campaign's ``fuzz`` row, printed."""
+              kernels, smi: str) -> dict:
+    """A campaign's ``fuzz`` row, printed; each of ``kernels`` must have
+    launched."""
     name = summary["campaign"]
     unit = "records" if name == "bam" else "reads"
     row = {"campaign": name, "argv": argv, "ranks": ranks,
@@ -1692,16 +2022,16 @@ def _fuzz_row(summary: dict, argv, ranks: int, wall: float, launches: dict,
            "divergences": summary["divergences"],
            "seconds": summary["seconds"], "wall_s": wall,
            **{k: v for k, v in summary.items() if k.startswith("planted")},
-           "fused_span_walk_launches": launches["fused_span_walk"],
-           "double_walk_launches": launches["double_walk"], "card": smi}
-    if not row["trials"] or min(row["fused_span_walk_launches"],
-                                row["double_walk_launches"]) <= 0:
+           **{f"{k}_launches": launches[k] for k in kernels}, "card": smi}
+    if not row["trials"] or row["divergences"] or min(
+            launches[k] for k in kernels) <= 0:
         raise AssertionError(f"fuzz {name}: {row}")
+    planted = {k: v for k, v in row.items() if k.startswith("planted")}
     print(f"[fuzz] {name} on {ranks} rank(s), `{' '.join(argv)}`: "
           f"{row['trials']} trials, {row[unit]} {unit}, zero divergences, "
-          f"{row['seconds']:.1f} s; launches fused_span_walk "
-          f"{row['fused_span_walk_launches']}, double_walk "
-          f"{row['double_walk_launches']}; {smi}")
+          f"{row['seconds']:.1f} s; {planted or 'no planted block'}; "
+          f"launches {', '.join(f'{k} {launches[k]}' for k in kernels)}; "
+          f"{smi}")
     return row
 
 
@@ -1742,7 +2072,8 @@ def main(argv=None) -> int:
         return result
 
     timed("build", phase_build)
-    kernel = timed("kernel", phase_kernel, args.seed)
+    kernel = timed("probe_walk_kernel", phase_probe_walk_kernel, args.seed)
+    kernel.update(timed("kernel", phase_kernel, args.seed))
     kernel.update(timed("gather_kernels", phase_gather_kernels, args.seed))
     counters = Counters()
     timed("gather", phase_gather, counters)
@@ -1786,7 +2117,14 @@ def main(argv=None) -> int:
     for name, cases in kernel.items():
         main_row = cases[0]
         extra = {}
-        if name in GATHER_KERNELS:
+        if name == "probe_walk_filter":
+            source = f"nimble_tpu_torch/csrc/{name}.cu"
+            shape = (f"B={main_row['B']} C=8 Lmax={main_row['Lmax']}, "
+                     f"{main_row['input']}, {main_row['mode']}")
+            extra = {"kernels_per_call": main_row["kernels_per_call"],
+                     "cases": [{k: r[k] for k in PROBE_WALK_CASE_KEYS}
+                               for r in cases]}
+        elif name in GATHER_KERNELS:
             source = "nimble_tpu_torch/csrc/gather_rows.cu"
             shape = (f"table ({main_row['N']}, {main_row['W']}) int32, "
                      f"M={main_row['M']}, {main_row['case']}")

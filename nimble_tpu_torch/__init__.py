@@ -5,28 +5,33 @@ BAM forensic path over one library or several in one stacked pass, the
 ``align_batch`` interface, the data x model mesh and multi-host runs on
 ``torch.distributed``, the ``__graft_entry__.py`` hooks, the bench and the
 differential fuzz campaigns.  The device compute (anchor probe, span walk,
-on-device filters, packed results) runs as torch ops plus hand-written CUDA
-kernels for Hopper (``csrc/*.cu``), each with a plain torch version that
-the CPU runs.  Everything around it — library loading, the host index build,
-FASTQ and BAM parsing, the dedupe/count tail, host rescue, the forensic row
-assembly and the writers, and the C++ host library
-(``csrc/nimble_host.cpp``, built by ``native``) — is the port's own copy of
-the JAX package's host code, held to it byte for byte by the tests.  This
-package imports neither jax nor ``nimble_tpu``.
+on-device filters, packed results) runs as hand-written CUDA kernels for
+Hopper (``csrc/*.cu``; on one device the whole pass is one launch of
+``csrc/probe_walk_filter.cu``) and torch ops around them, each kernel with a
+plain torch version that the CPU runs.  Everything around it — library
+loading, the host index build, FASTQ and BAM parsing, the dedupe/count tail,
+host rescue, the forensic row assembly and the writers, and the C++ host
+library (``csrc/nimble_host.cpp``, built by ``native``) — is the port's own
+copy of the JAX package's host code, held to it byte for byte by the tests.
+This package imports neither jax nor ``nimble_tpu``.
 
 Package layout:
   ops/hashing        — uint32 hash, fingerprint and rolling k-mer keys
   ops/device_index   — the bucketed index as numpy arrays (host build)
   ops/device_tables  — the bucketed index and filter scalars as torch
                        tensors, one library or several stacked
-  ops/probe          — the fingerprint anchor probe
+  ops/probe          — the fingerprint anchor probe (torch ops)
+  ops/probe_walk     — the whole pass in one kernel: probe, candidates,
+                       walk, filter and pack (kernel wrapper of
+                       csrc/probe_walk_filter.cu and its plain twin)
   ops/span_walk      — word gather + the fused span walk (kernel wrapper
                        of csrc/fused_span_walk.cu and its plain version)
   ops/double_walk    — the walk over precomputed masks (kernel wrapper of
                        csrc/double_walk.cu and its plain version)
   ops/compact        — packed reads -> probe -> walk -> filters -> (B, 2)
+                       (the kernel's plain twin is its chain)
   ops/full           — packed reads -> probe -> walk -> (B, 3), the BAM
-                       path's full-output pass
+                       path's full-output pass (likewise)
   ops/gather         — the gather-probe kernels of csrc/gather_rows.cu
                        (take, taa, lane) and their plain versions
   ops/_build         — nvcc build-at-first-use + ctypes loading

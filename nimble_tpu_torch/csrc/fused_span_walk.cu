@@ -42,46 +42,31 @@
 //   power-of-two group of lanes (8 for C = 8, so 4 reads per warp); lanes
 //   past C or past the batch carry live = 0.  The block is 64 threads, so
 //   the 8192-read launch at C = 8 is 1,024 blocks spread over all 132 SMs.
-// - The gather is in the kernel: each lane computes its window and loads
-//   it once; no (B, C, NW) words tensor exists.
-// - 16 bases per compare: the read's packed row is loaded once, as 32-bit
-//   words from the 4-byte boundary at or before it (rows are 25 bytes at
-//   Lmax = 92), and funnel-shifted into read words; each phase-aligned
-//   reference word (__funnelshift_r, defined at phase 0) is XORed with the
-//   read word and ~(x | x >> 1) & 0x55555555 leaves bit 2j set where base j
-//   matches.  There is no global load in the step loop.  Up to NR = 8
-//   (Lmax <= 128) the match words live in registers (one kernel per NR);
-//   above, each lane's NW reference words are staged in dynamic shared
-//   memory with cp.async and turned into match words in place (above 48 KB
-//   after the cudaFuncAttributeMaxDynamicSharedMemorySize opt-in: 256
-//   threads x 65 words at Lmax = 1024).
-// - The chain: a step is valid for a lane where it is alive and its read
-//   active, one interval of p per lane and walk, computed once.  Folding
-//   active into the votes keeps the result: an inactive read votes no
-//   valid lane, and a step without one changes nothing.  For each 16 steps
-//   the lane builds one word, valid at odd bits and valid & match at even
-//   bits; the 16 steps are unrolled, and a step is two votes on fixed bits
-//   of that word (off the chain: they do not depend on live), then
-//   la = live & A and lm = live & M with two predicated moves.  The group's
-//   live lanes are one mask held by each lane of the group; score and the
-//   steps with a live valid lane are kept as bits per chunk and counted
-//   once (mm is their difference).  The warp walks the union of the valid
-//   intervals of its lanes that start live, in chunks from the union's first
-//   step (forward) or last step (left), so no more than 15 steps a walk are
-//   spare.
+// - The walk itself is nimble_walk::walk_lanes (csrc/span_walk.cuh, shared
+//   with csrc/probe_walk_filter.cu, which probes and filters around it in
+//   the same launch): it gathers its own reference words, compares 16
+//   bases a word, and walks chunks of 16 steps with two votes a step; up
+//   to NR = 8 (Lmax <= 128) its match words live in registers (one kernel
+//   per NR), above in dynamic shared memory (256 threads x 65 words at
+//   Lmax = 1024, above 48 KB after the opt-in).  This entry serves the
+//   mesh's shard step, which all-reduces the probe before the walk; the
+//   single-device passes launch probe_walk_filter.cu instead.
 
 #include <cstdint>
-#include <utility>
 
 #include <cuda_runtime.h>
 
+#include "span_walk.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+using nimble_walk::kFull;
+using nimble_walk::kMaxRegWords;
+using nimble_walk::Lane;
+using nimble_walk::WalkTables;
+
 constexpr int kRegThreads = 64;
 constexpr int kSmemThreads = 256;
-constexpr int kMaxRegWords = 8;
-constexpr size_t kDefaultSmem = 48 * 1024;
 
 struct WalkArgs {
   const uint8_t* packed;       // (B, row_bytes)
@@ -90,127 +75,15 @@ struct WalkArgs {
   const int64_t* offs;         // (B, C)
   const uint8_t* live0;        // (B, C) bool
   const int64_t* lib;          // (B,) or null: library 0
-  const int32_t* row_starts;   // (L, n_rows)
-  const int32_t* row_lengths;  // (L, n_rows)
-  const uint32_t* ref;         // (L, n_words)
+  WalkTables t;
   uint8_t* live_out;           // (B, C) bool
   int32_t* score_out;          // (B,)
   int32_t* mm_out;             // (B,)
-  int64_t n_rows;
-  int64_t n_words;
-  int B, C, Lmax, k, ref_pad, gbits;
+  int B, C, gbits;
 };
 
-__device__ __forceinline__ int clamp_int(int64_t v, int lo, int hi) {
-  return static_cast<int>(v < lo ? lo : (v > hi ? hi : v));
-}
-
-// Bits 2j set where base j of the phase-aligned reference word equals base
-// j of the read word.
-__device__ __forceinline__ uint32_t match_word(uint32_t lo, uint32_t hi,
-                                               unsigned sh, uint32_t rw) {
-  const uint32_t x = __funnelshift_r(lo, hi, sh) ^ rw;
-  return ~(x | (x >> 1)) & 0x55555555u;
-}
-
-// Read word i of a packed row: bases 16i..16i+15, bytes past nb read as 0.
-__device__ __forceinline__ uint32_t read_word(const uint8_t* prow, int i,
-                                              int nb) {
-  uint32_t w = 0u;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int j = 4 * i + q;
-    if (j < nb) w |= static_cast<uint32_t>(__ldg(prow + j)) << (8 * q);
-  }
-  return w;
-}
-
-// Even bits 2j of the steps j < n of a 16-step chunk (n clamped to 0..16).
-__device__ __forceinline__ uint32_t steps_below(int n) {
-  n = min(max(n, 0), 16);
-  return n == 16 ? 0x55555555u : ((1u << (2 * n)) - 1u) & 0x55555555u;
-}
-
-// The lane's word for the 16 steps p = base..base+15 of one walk: bit 2j+1
-// set where step base+j is valid (alive and its read active: lo <= p < hi),
-// bit 2j where it is valid and the bases match (m: match bits of those
-// steps, from match_word).
-__device__ __forceinline__ uint32_t chunk_word(uint32_t m, int base, int lo,
-                                               int hi) {
-  const uint32_t v = steps_below(hi - base) & ~steps_below(lo - base);
-  return (v << 1) | (v & m);
-}
-
-// The match bits of steps base..base+15 from the NR match words of steps
-// 0..16*NR-1 (bits of steps outside them are 0; base may be negative).  The
-// words are picked by selects, not indexed, so they stay in registers.
-template <int NR>
-__device__ __forceinline__ uint32_t match_at(const uint32_t (&mw)[NR],
-                                             int base) {
-  const int q = base >> 4;  // rounds down
-  uint32_t lo = 0u, hi = 0u;
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    lo = i == q ? mw[i] : lo;
-    hi = i == q + 1 ? mw[i] : hi;
-  }
-  return __funnelshift_r(lo, hi, 2u * static_cast<unsigned>(base & 15));
-}
-
-struct Lane {
-  unsigned live;  // the group's live lanes, at their warp positions
-  int score, acts;  // matched steps; steps with a live, valid lane (mm is
-                    // acts - score)
-};
-
-// Step T of a chunk, on bit pair J of the chunk word w: the votes of valid
-// (bit 2J+1) and valid & match (bit 2J), then la = live & A, lm = live & M;
-// if la != 0: live = la, acted |= 1 << T; if lm != 0: live = lm,
-// matched |= 1 << T (lm is within la).  In PTX so that each bit test is one
-// instruction with its mask as an immediate.
-template <int J, int T>
-__device__ __forceinline__ void chunk_step(unsigned& live, unsigned& matched,
-                                           unsigned& acted, uint32_t w) {
-  asm volatile(
-      "{\n\t"
-      ".reg .pred pv, pm, pa, pl;\n\t"
-      ".reg .b32 a, m;\n\t"
-      "and.b32 a, %3, %4;\n\t"
-      "setp.ne.u32 pv, a, 0;\n\t"
-      "and.b32 m, %3, %5;\n\t"
-      "setp.ne.u32 pm, m, 0;\n\t"
-      "vote.sync.ballot.b32 a, pv, 0xffffffff;\n\t"
-      "vote.sync.ballot.b32 m, pm, 0xffffffff;\n\t"
-      "and.b32 a, a, %0;\n\t"
-      "and.b32 m, m, %0;\n\t"
-      "setp.ne.u32 pa, a, 0;\n\t"
-      "setp.ne.u32 pl, m, 0;\n\t"
-      "@pa mov.b32 %0, a;\n\t"
-      "@pl mov.b32 %0, m;\n\t"
-      "@pa or.b32 %2, %2, %6;\n\t"
-      "@pl or.b32 %1, %1, %6;\n\t"
-      "}"
-      : "+r"(live), "+r"(matched), "+r"(acted)
-      : "r"(w), "n"(2u << (2 * J)), "n"(1u << (2 * J)), "n"(1u << T));
-}
-
-template <bool DESC, int... T>
-__device__ __forceinline__ void chunk_steps(Lane& s, uint32_t w,
-                                            std::integer_sequence<int, T...>) {
-  unsigned matched = 0u, acted = 0u;
-  (chunk_step<DESC ? 15 - T : T, T>(s.live, matched, acted, w), ...);
-  s.score += __popc(matched);
-  s.acts += __popc(acted);
-}
-
-// The 16 steps of a chunk word, j = 0..15 (or 15..0 when DESC).
-template <bool DESC>
-__device__ __forceinline__ void walk_chunk(Lane& s, uint32_t w) {
-  chunk_steps<DESC>(s, w, std::make_integer_sequence<int, 16>{});
-}
-
-// NR > 0: NR match words in registers.  NR == 0: (Lmax + 15) / 16 match
-// words in dynamic shared memory, word i of thread t at [i * blockDim + t].
+// NR > 0: NR match words in registers.  NR == 0: (Lmax + 15) / 16 + 1
+// words of dynamic shared memory per thread.
 template <int NR>
 __global__ void fused_span_walk_kernel(const WalkArgs a) {
   extern __shared__ uint32_t smem[];
@@ -228,113 +101,16 @@ __global__ void fused_span_walk_kernel(const WalkArgs a) {
   // valid address) and never vote live
   const int64_t rb = read_ok ? b : 0;
   const int64_t bc = cand_ok ? b * a.C + c : 0;
-  const unsigned gmask = a.gbits == 5
-                             ? kFull
-                             : ((1u << (1 << a.gbits)) - 1u)
-                                   << (group << a.gbits);
-  const int nr = NR > 0 ? NR : (a.Lmax + 15) >> 4;
-  const int nb = (a.Lmax + 3) >> 2;
+  const int nb = (a.t.Lmax + 3) >> 2;
 
   const uint8_t* prow = a.packed + rb * static_cast<int64_t>(nb + 2);
   const int rdlen = __ldg(prow + nb) | (__ldg(prow + nb + 1) << 8);
-  const int64_t anc = __ldg(a.anchor + rb);
   const int64_t lib = a.lib != nullptr ? __ldg(a.lib + rb) : 0;
-  const int64_t row = lib * a.n_rows + __ldg(a.rows + bc);
-  const int64_t off = __ldg(a.offs + bc);
   const bool live0 = cand_ok && __ldg(a.live0 + bc) != 0;
-  const int64_t base = off - anc;
-  const int64_t start = __ldg(a.row_starts + row) + base + a.ref_pad;
-  const unsigned sh = 2u * static_cast<unsigned>(start & 15);
-  int64_t w0 = start >> 4;
-  const int64_t w_max = a.n_words - (nr + 1);
-  w0 = w0 < 0 ? 0 : (w0 > w_max ? w_max : w0);
-  const uint32_t* win = a.ref + lib * a.n_words + w0;
-
-  // Each walk's valid steps, alive and active, as one interval of p per
-  // lane.  Forward: alive while p < row_len - base, active for
-  // anchor + k <= p < read_len.  Left (p <= P - 2, P = Lmax - k + 1):
-  // alive while p >= -base, active for p < anchor.
-  const int P = a.Lmax - a.k + 1;
-  const int f_lo = clamp_int(anc + a.k, a.k, a.Lmax);
-  const int f_hi = min(clamp_int(__ldg(a.row_lengths + row) - base, -1,
-                                 a.Lmax),
-                       min(rdlen, a.Lmax));
-  const int l_lo = clamp_int(-base, 0, a.Lmax);
-  const int l_hi = clamp_int(anc, 0, P - 1);  // exclusive
-
-  uint32_t mw[NR > 0 ? NR : 1];
-  uint32_t* sw = smem + threadIdx.x;  // this thread's column
-  if constexpr (NR > 0) {
-    // the row's read bytes as 32-bit words loaded from the 4-byte boundary
-    // at or before the row: each word holds a byte of the row, so it lies
-    // in the tensor's allocation (4-byte granular)
-    const uint64_t at = reinterpret_cast<uint64_t>(prow);
-    const uint32_t* aligned = reinterpret_cast<const uint32_t*>(at & ~3ull);
-    const int lead = static_cast<int>(at & 3);
-    uint32_t rw[NR + 1];
-#pragma unroll
-    for (int j = 0; j <= NR; ++j)
-      rw[j] = 4 * j < lead + nb ? __ldg(aligned + j) : 0u;
-    uint32_t lo = __ldg(win);
-#pragma unroll
-    for (int i = 0; i < NR; ++i) {
-      const uint32_t hi = __ldg(win + i + 1);
-      // read bytes 4i..4i+3; bytes past nb only meet steps >= Lmax, which
-      // are never valid
-      mw[i] = match_word(lo, hi, sh,
-                         __funnelshift_r(rw[i], rw[i + 1], 8u * lead));
-      lo = hi;
-    }
-  } else {
-    for (int i = 0; i <= nr; ++i) {
-      const unsigned dst = static_cast<unsigned>(
-          __cvta_generic_to_shared(sw + i * blockDim.x));
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-                   "l"(win + i));
-    }
-    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                     : "memory");
-    for (int i = 0; i < nr; ++i) {
-      sw[i * blockDim.x] =
-          match_word(sw[i * blockDim.x], sw[(i + 1) * blockDim.x], sh,
-                     read_word(prow, i, nb));
-    }
-  }
-
-  Lane s;
-  s.live = __ballot_sync(kFull, live0) & gmask;
-  s.score = 0;
-  s.acts = 0;
-  // the warp walks the union of the valid intervals of its live lanes: a
-  // lane not live at the start never votes live, and a step where no live
-  // lane of the warp is valid is a no-op
-  const bool fw = live0 && f_lo < f_hi;
-  const bool lw = live0 && l_lo < l_hi;
-  const int wf_lo = __reduce_min_sync(kFull, fw ? f_lo : a.Lmax);
-  const int wf_hi = __reduce_max_sync(kFull, fw ? f_hi : 0);
-  const int wl_lo = __reduce_min_sync(kFull, lw ? l_lo : a.Lmax);
-  const int wl_hi = __reduce_max_sync(kFull, lw ? l_hi : 0);
-
-  // the match bits of steps base..base+15 (0 outside 0..16*nr-1)
-  const auto match_bits = [&](int base) -> uint32_t {
-    if constexpr (NR > 0) {
-      return match_at(mw, base);
-    } else {
-      const int q = base >> 4;  // rounds down
-      const uint32_t lo = q >= 0 && q < nr ? sw[q * blockDim.x] : 0u;
-      const uint32_t hi = q + 1 >= 0 && q + 1 < nr ? sw[(q + 1) * blockDim.x]
-                                                    : 0u;
-      return __funnelshift_r(lo, hi, 2u * static_cast<unsigned>(base & 15));
-    }
-  };
-  // chunks of 16 steps from the warp's first valid forward step up, then
-  // from its last valid left step down
-#pragma unroll 1
-  for (int base = wf_lo; base < wf_hi; base += 16)
-    walk_chunk<false>(s, chunk_word(match_bits(base), base, f_lo, f_hi));
-#pragma unroll 1
-  for (int base = wl_hi - 16; base + 16 > wl_lo; base -= 16)
-    walk_chunk<true>(s, chunk_word(match_bits(base), base, l_lo, l_hi));
+  const Lane s = nimble_walk::walk_lanes<NR>(
+      a.t, prow, rdlen, __ldg(a.anchor + rb), lib, __ldg(a.rows + bc),
+      __ldg(a.offs + bc), live0, nimble_walk::group_mask(lane, a.gbits),
+      smem + threadIdx.x);
 
   if (cand_ok) a.live_out[bc] = (s.live >> lane) & 1u;
   if (read_ok && c == 0) {
@@ -350,23 +126,11 @@ cudaError_t launch(const WalkArgs& a, int64_t threads_total,
   const int64_t blocks = (threads_total + threads - 1) / threads;
   size_t smem = 0;
   if constexpr (NR == 0) {
-    smem = static_cast<size_t>(threads) * (((a.Lmax + 15) >> 4) + 1) *
+    smem = static_cast<size_t>(threads) * (((a.t.Lmax + 15) >> 4) + 1) *
            sizeof(uint32_t);
-    if (smem > kDefaultSmem) {
-      int dev = 0;
-      cudaError_t e = cudaGetDevice(&dev);
-      if (e != cudaSuccess) return e;
-      int optin = 0;
-      e = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-      if (e != cudaSuccess) return e;
-      if (smem > static_cast<size_t>(optin)) return cudaErrorInvalidValue;
-      // the device's maximum every time: idempotent across host threads
-      e = cudaFuncSetAttribute(fused_span_walk_kernel<0>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
-      if (e != cudaSuccess) return e;
-    }
+    const cudaError_t e = nimble_walk::allow_smem(
+        reinterpret_cast<const void*>(fused_span_walk_kernel<0>), smem);
+    if (e != cudaSuccess) return e;
   }
   fused_span_walk_kernel<NR><<<static_cast<unsigned>(blocks), threads, smem,
                                stream>>>(a);
@@ -395,13 +159,14 @@ extern "C" int nimble_fused_span_walk(
                    static_cast<const int64_t*>(offs),
                    static_cast<const uint8_t*>(live0),
                    static_cast<const int64_t*>(lib),
-                   static_cast<const int32_t*>(row_starts),
-                   static_cast<const int32_t*>(row_lengths),
-                   static_cast<const uint32_t*>(ref),
+                   WalkTables{static_cast<const int32_t*>(row_starts),
+                              static_cast<const int32_t*>(row_lengths),
+                              static_cast<const uint32_t*>(ref), n_rows,
+                              n_words, Lmax, k, ref_pad},
                    static_cast<uint8_t*>(live_out),
                    static_cast<int32_t*>(score_out),
                    static_cast<int32_t*>(mm_out),
-                   n_rows, n_words, B, C, Lmax, k, ref_pad, gbits};
+                   B, C, gbits};
   const int64_t reads_per_warp = 32 >> gbits;
   const int64_t threads_total =
       (B + reads_per_warp - 1) / reads_per_warp * 32;

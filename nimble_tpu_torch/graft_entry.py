@@ -134,8 +134,11 @@ def entry(device="cuda"):
     """(fn, example_args): one compact align step on ``device``.
 
     ``fn(packed)`` is the launch :meth:`TorchAlignEngine.compact_dispatch`
-    runs, ``ops.compact.probe_walk_filter`` (probe, walk kernel, filter),
-    over the tiny problem's library; ``example_args`` holds its 16 reads of
+    runs, ``ops.compact.probe_walk_filter``: on the card one launch of the
+    ``probe_walk_filter`` kernel (probe, candidates, walk, filter and pack,
+    ``csrc/probe_walk_filter.cu``), on the CPU its plain twin
+    ``ops.compact.probe_walk_filter_plain``, over the tiny problem's
+    library; ``example_args`` holds its 16 reads of
     48 bp packed at their bucket (64), on ``device``.  It returns the (16,
     2) int32 compact results (``ops.compact.unpack_compact``).
 
@@ -199,6 +202,7 @@ def _dryrun_rank(work: str, device: str) -> int:
     modules this process loaded."""
     from nimble_tpu_torch.models.mesh_aligner import TorchMeshAlignEngine
     from nimble_tpu_torch.ops.double_walk import double_walk
+    from nimble_tpu_torch.ops.probe_walk import probe_walk
     from nimble_tpu_torch.ops.span_walk import fused_span_walk
     from nimble_tpu_torch.parallel.mesh import Mesh, init_runtime, mesh_shape
 
@@ -222,7 +226,8 @@ def _dryrun_rank(work: str, device: str) -> int:
                                    launch_batch=1024)
         eng_b = TorchMeshAlignEngine(index_b, _config_b(), mesh=mesh,
                                      launch_batch=1024)
-        fused_span_walk.launches = double_walk.launches = 0
+        probe_walk.launches = fused_span_walk.launches = 0
+        double_walk.launches = 0
         if rt.is_controller:
             report["checks"] = _dryrun_checks(eng, eng_b, rt.device)
         else:
@@ -232,7 +237,8 @@ def _dryrun_rank(work: str, device: str) -> int:
         rt.close(ok)
     if rt.device.type == "cuda":
         torch.cuda.synchronize()
-    report["launches"] = {"fused_span_walk": fused_span_walk.launches,
+    report["launches"] = {"probe_walk_filter": probe_walk.launches,
+                          "fused_span_walk": fused_span_walk.launches,
                           "double_walk": double_walk.launches}
     report["leaked"] = sorted(m for m in sys.modules
                               if m.split(".")[0] in FORBIDDEN)
@@ -327,8 +333,7 @@ def main(argv=None) -> int:
     print(f"entry ok: {tuple(out.shape)} {out.dtype} on {out.device}")
     reports = dryrun_multichip(args.ranks, args.device)
     print(f"dryrun_multichip ok on {args.ranks} ranks: {reports[0]['checks']}"
-          f"; walk launches per rank "
-          f"{[r['launches']['fused_span_walk'] for r in reports]}")
+          f"; kernel launches per rank {[r['launches'] for r in reports]}")
     return 0
 
 

@@ -3,8 +3,9 @@
 Same pattern as ``nimble_tpu/native.py``: each ``csrc/<name>.cu`` compiles
 with ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
 under ``nimble_tpu_torch/_build/`` (git-ignored).  The library's file name
-carries a hash of the source and the flags, so an edited source rebuilds and
-a stale build is never loaded.  A failed build raises; nothing falls back.
+carries a hash of the source, of every ``csrc/*.cuh`` header it includes and
+of the flags, so an edited source or header rebuilds and a stale build is
+never loaded.  A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -21,7 +23,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
-KERNELS = ("fused_span_walk", "double_walk", "gather_rows")  # csrc/*.cu
+KERNELS = ("probe_walk_filter", "fused_span_walk", "double_walk",
+           "gather_rows")  # csrc/*.cu
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -55,10 +58,28 @@ def source_path(name: str) -> Path:
     return CSRC_DIR / f"{name}.cu"
 
 
+def included_headers(path: Path) -> list:
+    """The ``csrc`` headers ``path`` includes (``#include "x.cuh"``), and
+    theirs, each once, in the order first included."""
+    seen: list = []
+    todo = [path]
+    while todo:
+        for inc in re.findall(rb'^\s*#\s*include\s+"([^"]+)"',
+                              todo.pop(0).read_bytes(), flags=re.M):
+            header = CSRC_DIR / inc.decode()
+            if header not in seen:
+                seen.append(header)
+                todo.append(header)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = source_path(name).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    src = source_path(name)
+    digest = hashlib.sha256()
+    for part in [src, *included_headers(src)]:
+        digest.update(part.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def load_library(name: str, *, rebuild: bool = False) -> ctypes.CDLL:

@@ -9,11 +9,19 @@ anchor's postings start, column 1 the live-lane mask | passed << 16 |
 needs_host << 17 | has_anchor << 18.  The entropy gate is not applied here:
 the host evaluates it in exact f64 at collect.
 
+``walk="fused"`` is one launch of the ``probe_walk_filter`` kernel
+(``ops.probe_walk.probe_walk``, ``csrc/probe_walk_filter.cu``: probe,
+candidates, walk, filter and pack); its plain twin
+:func:`probe_walk_filter_plain` is this module's chain of torch ops
+(:func:`probe_candidates`, the fused walk's plain version, the filter and
+the pack), which the kernel's wrapper runs for CPU tensors.
+``walk="double"`` runs the same chain around the double-walk kernel.
+
 Stacked libraries (``device_tables.StackedTables``) run through the same
-functions with a per-row library index ``lib``: :func:`probe_walk_filter_multi`
-broadcasts one launch's packed reads over the L libraries and flattens them
-to L*B rows, so one walk-kernel launch serves every library (the
-counterpart of ``probe_walk_filter_packed_multi_chunked``'s vmap).
+functions, every row against every library (L*B results, library major):
+:func:`probe_walk_filter_multi` serves one launch's packed reads against
+all L libraries in one launch (the counterpart of
+``probe_walk_filter_packed_multi_chunked``'s vmap).
 """
 
 from __future__ import annotations
@@ -31,13 +39,18 @@ from nimble_tpu_torch.ops.device_tables import (
     take,
 )
 from nimble_tpu_torch.ops.probe import probe_bucketed
+from nimble_tpu_torch.ops.probe_walk import probe_walk
 from nimble_tpu_torch.ops.span_walk import (
     fused_span_walk,
+    span_walk_plain,
     span_walk_rel,
     unpack_reads,
 )
 
 WALKS = ("fused", "double")
+# walk_candidates also takes "plain": the fused walk's plain version, which
+# launches no kernel on any device (the chain of probe_walk_filter_plain)
+_CANDIDATE_WALKS = WALKS + ("plain",)
 COMPACT_MASK_BITS = 16
 COMPACT_PASSED_BIT = 1 << 16
 COMPACT_NEEDS_HOST_BIT = 1 << 17
@@ -93,6 +106,11 @@ def probe_candidates(packed: torch.Tensor, t: IndexTables, *, bucket: int,
     )
 
 
+def check_walk(walk: str) -> None:
+    if walk not in WALKS:
+        raise ValueError(f"walk={walk!r} is not one of {WALKS}")
+
+
 def check_c_max(c_max: int) -> None:
     if not 1 <= c_max <= COMPACT_MASK_BITS:
         raise ValueError(f"c_max={c_max} must be in [1, {COMPACT_MASK_BITS}]: "
@@ -106,15 +124,17 @@ def walk_candidates(cand: Candidates, t: IndexTables, *, bucket: int,
     zero for reads without an anchor.
 
     ``walk="fused"`` is the fused span-walk kernel (``use_pallas="fused"``
-    in the JAX engine); ``walk="double"`` builds the relative-coordinate
-    masks and runs the double-walk kernel (``use_pallas=True``), with
-    ``l_steps = min(p_limit - 1, bucket - k)`` as the JAX engine sets it.
-    Both give the same bits.
+    in the JAX engine; the mesh's shard step); ``walk="plain"`` its plain
+    version ``span_walk_plain`` on any device; ``walk="double"`` builds the
+    relative-coordinate masks and runs the double-walk kernel
+    (``use_pallas=True``), with ``l_steps = min(p_limit - 1, bucket - k)``
+    as the JAX engine sets it.  All give the same bits.
     """
-    if walk not in WALKS:
-        raise ValueError(f"walk={walk!r} is not one of {WALKS}")
-    if walk == "fused":
-        live, walk_score, walk_mm = fused_span_walk(
+    if walk not in _CANDIDATE_WALKS:
+        raise ValueError(f"walk={walk!r} is not one of {_CANDIDATE_WALKS}")
+    if walk in ("fused", "plain"):
+        walker = fused_span_walk if walk == "fused" else span_walk_plain
+        live, walk_score, walk_mm = walker(
             cand.packed, cand.anchor, cand.rows, cand.offs, cand.live0, t,
             bucket=bucket, lib=cand.lib)
     else:
@@ -130,18 +150,53 @@ def walk_candidates(cand: Candidates, t: IndexTables, *, bucket: int,
 
 def probe_walk_filter(packed: torch.Tensor, t: IndexTables,
                       scalars: FilterScalars, s_min: torch.Tensor, *,
-                      bucket: int, c_max: int, walk: str = "fused",
-                      lib=None) -> torch.Tensor:
+                      bucket: int, c_max: int,
+                      walk: str = "fused") -> torch.Tensor:
     """One launch of packed reads -> (B, 2) int32 compact results.
 
     ``s_min`` is the device copy of ``device_tables.s_min_table(...,
     bucket)``; ``c_max`` candidate lanes (<= 16) are walked per read and
-    reads whose anchor has more postings go to host rescue.  ``walk``
-    selects the walk kernel (see :func:`walk_candidates`).  With stacked
-    tables, ``lib`` (B,) names each row's library, ``scalars`` holds
-    ``(L,)`` gates and ``s_min`` is ``(L, bucket + 1)``.
+    reads whose anchor has more postings go to host rescue.  ``walk="fused"``
+    launches the ``probe_walk_filter`` kernel (``ops.probe_walk``; on CPU
+    tensors its plain twin :func:`probe_walk_filter_plain`);
+    ``walk="double"`` runs the chain around the double walk.  With stacked
+    tables, ``scalars`` holds ``(L,)`` gates, ``s_min`` is ``(L, bucket +
+    1)`` and every row is served against every library, ``(L*B, 2)``
+    library major.
     """
     check_c_max(c_max)
+    check_walk(walk)
+    if walk == "fused":
+        return probe_walk(packed, t, bucket=bucket, c_max=c_max,
+                          scalars=scalars, s_min=s_min)
+    return _filter_chain(packed, t, scalars, s_min, bucket=bucket,
+                         c_max=c_max, walk=walk)
+
+
+def probe_walk_filter_plain(packed: torch.Tensor, t: IndexTables,
+                            scalars: FilterScalars, s_min: torch.Tensor, *,
+                            bucket: int, c_max: int) -> torch.Tensor:
+    """The ``probe_walk_filter`` kernel's plain twin: :func:`probe_walk_filter`
+    with ``walk="fused"`` as a chain of torch ops that launches no kernel
+    on any device."""
+    check_c_max(c_max)
+    return _filter_chain(packed, t, scalars, s_min, bucket=bucket,
+                         c_max=c_max, walk="plain")
+
+
+def every_library(packed: torch.Tensor, t: IndexTables):
+    """(rows, lib) of a pass: with stacked tables, the rows repeated once
+    per library with their (L*B,) library index (library major); with one
+    library's tables, the rows and None."""
+    if t.bkey_fp.dim() == 3:
+        L, B = t.bkey_fp.shape[0], packed.shape[0]
+        return packed.repeat(L, 1), library_rows(L, B, packed.device)
+    return packed, None
+
+
+def _filter_chain(packed, t, scalars, s_min, *, bucket, c_max, walk):
+    """Probe, walk (``walk_candidates``), distinct count, gates, pack."""
+    packed, lib = every_library(packed, t)
     cand = probe_candidates(packed, t, bucket=bucket, c_max=c_max, lib=lib)
     has_anchor, rows = cand.has_anchor, cand.rows
     live, score, mm = walk_candidates(cand, t, bucket=bucket, walk=walk)
@@ -194,14 +249,12 @@ def probe_walk_filter_multi(packed: torch.Tensor, st: StackedTables, *,
                             walk: str = "fused") -> torch.Tensor:
     """One launch of (B, ceil(bucket/4) + 2) packed reads against every
     stacked library -> (L, B, 2) int32, library l's rows in its own combo-id
-    space: ``probe_walk_filter_packed_multi_chunked``.  The B rows are
-    broadcast to L*B rows that go through one :func:`probe_walk_filter`
-    pass (one walk-kernel launch for all libraries)."""
-    L, B = st.n_libraries, packed.shape[0]
-    out = probe_walk_filter(
-        packed.repeat(L, 1), st, st.scalars, st.s_min(bucket), bucket=bucket,
-        c_max=c_max, walk=walk, lib=library_rows(L, B, packed.device))
-    return out.reshape(L, B, 2)
+    space: ``probe_walk_filter_packed_multi_chunked``.  One kernel launch
+    for all libraries with ``walk="fused"``, one chain over the rows
+    repeated per library with ``walk="double"``."""
+    out = probe_walk_filter(packed, st, st.scalars, st.s_min(bucket),
+                            bucket=bucket, c_max=c_max, walk=walk)
+    return out.reshape(st.n_libraries, packed.shape[0], 2)
 
 
 def unpack_compact(packed: np.ndarray) -> dict:
