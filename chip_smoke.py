@@ -17,12 +17,19 @@ nothing falls back to the CPU):
    tensors at the main path's shapes.  probe_walk_filter (the main path's
    whole device pass in one launch) against its plain twin (the torch chain
    of ops/compact.py and ops/full.py), compact (B, 2) and full (B, 3) mode,
-   on five inputs of 8,192 reads of 90 bp at bucket 92: the bench library
+   on six inputs of 8,192 reads of 90 bp at bucket 92: the bench library
    (max_probe 1), the MHC-scale library (max_probe 2), the 4 x bench stack
    and the bench + mhc stack (every read against every library, as the
-   multi-library pass sends them) and the bench library with planted
-   fingerprint collisions, each also with its CUDA kernels per call counted
-   in a profiler trace (``kernels_per_call``, ``plain_kernels_per_call``);
+   multi-library pass sends them), the bench library with planted
+   fingerprint collisions and an allele family (8 alleles 1% apart, most
+   reads with several live candidates), each also with its CUDA kernels
+   per call counted in a profiler trace (``kernels_per_call``,
+   ``plain_kernels_per_call``); with the time of an empty kernel on the
+   same grid (the floor no 8,192-read launch goes under), the kernel's
+   split into phases (setup, probe, slot + candidates, word loads, walk,
+   epilogue: clock64() cycles per warp from a stamped copy of its source,
+   ``phase_split``) on each input in compact mode, and ptxas's registers
+   and spills per instantiation;
    then (B = 8192 reads, C = 8 candidates, Lmax = 92 and 96, candidates
    probed from a real index): for fused_span_walk the uploaded packed
    reads, the probe's candidates and the tables; for double_walk the masks
@@ -174,6 +181,7 @@ import gzip
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -217,7 +225,8 @@ PROBE_WALK_CASE_KEYS = ("input", "mode", "B", "max_probe", "device_ms",
                         "cold_device_ms", "ms", "plain_ms", "plain_device_ms",
                         "kernels_per_call", "plain_kernels_per_call",
                         "bound_ms", "bound_by", "bound_bytes", "bound_ops",
-                        "bound_share", "cold_bound_share")
+                        "bound_share", "cold_bound_share", "empty_launch_ms",
+                        "registers", "phase_split")
 GATHER_CASE_KEYS = ("N", "W", "M", "case", "design", "smem_kib",
                     "device_ms", "cold_device_ms", "plain_device_ms",
                     "library_device_ms", "bound_ms", "bound_bytes",
@@ -598,9 +607,13 @@ def _probe_walk_inputs(seed: int) -> list:
     packed, tables, scalars, s_min) with KERNEL_BATCH reads of 90 bp
     at bucket 92 each: bench (max_probe 1), mhc (max_probe 2), the 4 x
     bench stack and the bench + mhc stack (every row against every
-    library, as the multi-library pass sends them), and the bench library
+    library, as the multi-library pass sends them), the bench library
     with every other read's first k-mer forged into its bucket's lane 0 (a
-    fingerprint collision the probe must flag)."""
+    fingerprint collision the probe must flag), and the allele family
+    (``workload.allele_family``: 8 alleles of one 1,500 bp feature, 1%
+    apart, doubled; the bench's error model), where most reads keep
+    several live candidates that part at different steps, as on KIR and
+    MHC libraries."""
     import dataclasses
 
     import numpy as np
@@ -620,7 +633,7 @@ def _probe_walk_inputs(seed: int) -> list:
         stack_tables,
         tables_from_bucketed_index,
     )
-    from nimble_tpu_torch.workload import generate
+    from nimble_tpu_torch.workload import allele_family, generate
 
     bucket = KERNEL_BUCKETS[0]
     lens = np.full(KERNEL_BATCH, 90, dtype=np.int32)
@@ -656,6 +669,8 @@ def _probe_walk_inputs(seed: int) -> list:
 
     bench = library(seed, 50, 500)
     mhc = library(seed, 1000, 1500)
+    _f, alleles, allele_mat = allele_family(n_reads=KERNEL_BATCH, seed=seed)
+    allele_index = build_index(alleles)
     benches = [bench] + [library(seed + i, 50, 500) for i in (1, 2, 3)]
     index, bidx, mat = bench
     fp = bidx.bkey_fp.copy()
@@ -670,7 +685,9 @@ def _probe_walk_inputs(seed: int) -> list:
     return [("bench", *single(bench)), ("mhc", *single(mhc)),
             ("4 x bench", *stacked(benches)),
             ("bench + mhc", *stacked([bench, mhc])),
-            ("planted collisions", *single((index, forged, mat)))]
+            ("planted collisions", *single((index, forged, mat))),
+            ("allele family", *single((allele_index, build_bucketed_index(
+                allele_index), allele_mat)))]
 
 
 def _probe_walk_work(packed, t, bucket: int, c_max: int, full: bool):
@@ -743,15 +760,172 @@ def _probe_walk_work(packed, t, bucket: int, c_max: int, full: bool):
     return n_bytes, n_ops
 
 
+# phase_split: the stamp inserted at each marker line of the kernel's
+# source (before it, or after it for the first), in the order a warp meets
+# them; phase i runs from stamp i to stamp i + 1
+STAMP_MARKERS = (
+    ("probe_walk_filter.cu", "  extern __shared__ uint32_t smem[];"),
+    ("probe_walk_filter.cu", "  // --- probe"),
+    ("probe_walk_filter.cu", "  // the winner's values to its group"),
+    ("probe_walk_filter.cu", "  // --- walk"),
+    ("span_walk.cuh", "  Lane s;"),
+    ("probe_walk_filter.cu", "  // --- distinct"),
+    ("probe_walk_filter.cu", "  if (!read_ok || c != 0) return;"),
+)
+PHASES = ("setup", "probe", "slot + candidates", "word loads", "walk",
+          "epilogue")
+_STAMP_PRELUDE = """#include <cstdint>
+#include <cuda_runtime.h>
+__device__ unsigned long long* nimble_stamps;
+#define NIMBLE_STAMP(i) (nimble_stamps[((static_cast<unsigned long long>( \\
+    blockIdx.y) * gridDim.x + blockIdx.x) * blockDim.x + threadIdx.x) * 8 \\
+    + (i)] = clock64())
+"""
+_STAMP_ENTRIES = """
+extern "C" int nimble_stamps_set(void* p) {
+  return static_cast<int>(cudaMemcpyToSymbol(nimble_stamps, &p, sizeof(p)));
+}
+__global__ void nimble_empty_kernel() {}
+extern "C" int nimble_empty_launch(int blocks, int threads, void* stream) {
+  nimble_empty_kernel<<<blocks, threads, 0,
+                        static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def stamped_library(out_dir: str):
+    """The probe_walk_filter source of the imported package
+    (``_build.CSRC_DIR``) with a clock64() stamp per thread at each of
+    STAMP_MARKERS, plus an empty kernel (``nimble_empty_launch``), built
+    with the package's nvcc flags into ``out_dir``; a measurement build,
+    never the main path's."""
+    import ctypes
+    from pathlib import Path
+
+    from nimble_tpu_torch.ops import _build
+
+    out = Path(out_dir)
+    for h in list(_build.CSRC_DIR.glob("*.cuh")) + list(
+            _build.CSRC_DIR.glob("*.h")):
+        shutil.copy(h, out / h.name)
+    texts = {"probe_walk_filter.cu": (
+        _build.CSRC_DIR / "probe_walk_filter.cu").read_text(),
+        "span_walk.cuh": (_build.CSRC_DIR / "span_walk.cuh").read_text()}
+    for i, (name, marker) in enumerate(STAMP_MARKERS):
+        lines = texts[name].split("\n")
+        at = [j for j, line in enumerate(lines) if line.startswith(marker)]
+        if len(at) != 1:
+            raise AssertionError(f"stamp {i}: {marker!r} is on {len(at)} "
+                                 f"lines of {name}")
+        lines.insert(at[0] + (i == 0), f"  NIMBLE_STAMP({i});")
+        texts[name] = "\n".join(lines)
+    (out / "span_walk.cuh").write_text(texts["span_walk.cuh"])
+    src = out / "probe_walk_filter.cu"
+    src.write_text(_STAMP_PRELUDE + texts["probe_walk_filter.cu"]
+                   + _STAMP_ENTRIES)
+    so = out / "libprobe_walk_filter_stamped.so"
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(so), str(src)], capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the stamped build failed:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(so))
+    lib.nimble_stamps_set.argtypes = [ctypes.c_void_p]
+    lib.nimble_empty_launch.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
+    return lib
+
+
+def phase_split(stamped, call, n_results: int) -> dict:
+    """Mean clock64() cycles a warp spends in each of PHASES in one call
+    of ``call`` (a ``probe_walk`` call) served by the stamped library
+    (lane 0 of every warp that reached the last stamp), after a warm-up
+    call."""
+    import torch
+
+    from nimble_tpu_torch.ops import _build
+    from nimble_tpu_torch.ops import probe_walk as pw
+
+    threads = n_results * 32 + 64 * 1024  # >= the grid's threads
+    stamps = torch.zeros(threads * 8, dtype=torch.int64, device="cuda")
+    if stamped.nimble_stamps_set(stamps.data_ptr()):
+        raise AssertionError("nimble_stamps_set failed")
+    real_load, real_lib = _build.load_library, pw._lib
+    _build.load_library = (lambda name, **kw: stamped
+                           if name == "probe_walk_filter"
+                           else real_load(name, **kw))
+    pw._lib = None
+    try:
+        call()
+        torch.cuda.synchronize()
+        stamps.zero_()
+        call()
+        torch.cuda.synchronize()
+    finally:
+        _build.load_library, pw._lib = real_load, real_lib
+    warps = stamps.view(-1, 8)[::32]
+    warps = warps[(warps[:, 0] != 0) & (warps[:, len(PHASES)] != 0)]
+    cycles = (warps[:, 1:len(PHASES) + 1] - warps[:, :len(PHASES)]).double()
+    mean = cycles.mean(dim=0).tolist()
+    return {"warps": int(warps.shape[0]),
+            "cycles": dict(zip(PHASES, mean)),
+            "share": dict(zip(PHASES, (c / sum(mean) for c in mean)))}
+
+
+def ptxas_usage(name: str) -> dict:
+    """{kernel instantiation (its NR, 0: shared memory): (registers, spill
+    store bytes, spill load bytes)} from nvcc's ``-Xptxas -v`` report of
+    ``csrc/<name>.cu`` (built anew when this process has no report)."""
+    import re
+
+    from nimble_tpu_torch.ops import _build
+
+    if name not in _build.ptxas_report:
+        _build.load_library(name, rebuild=True)
+    usage, fn, spill = {}, None, (0, 0)
+    for line in _build.ptxas_report[name].splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            nr = re.search(r"ILi(\d+)E", m.group(1))
+            fn = int(nr.group(1)) if nr else m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            usage[fn] = (int(m.group(1)),) + spill
+    return usage
+
+
 def phase_probe_walk_kernel(seed: int):
     """The probe_walk_filter kernel against its plain twin, bit for bit, on
-    the five inputs of ``_probe_walk_inputs`` in both modes (compact (B, 2)
+    the six inputs of ``_probe_walk_inputs`` in both modes (compact (B, 2)
     and full (B, 3)): device time warm and L2-cold, per-call time, CUDA
-    kernels per call of each, and the bound.  Returns its rows."""
+    kernels per call of each, and the bound; per input in compact mode the
+    phase split (``phase_split``); the empty-launch floor; ptxas's
+    registers and spills.  Returns its rows."""
     import torch
 
     from nimble_tpu_torch.ops.probe_walk import probe_walk, probe_walk_plain
 
+    usage = ptxas_usage("probe_walk_filter")
+    print("[kernel] probe_walk_filter ptxas (NR: registers, spill stores, "
+          "spill loads; NR 6 is bucket 92): "
+          + "; ".join(f"{k}: {v[0]}, {v[1]} B, {v[2]} B"
+                      for k, v in sorted(usage.items(), key=str)))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_stamped_")
+    stamped = stamped_library(tmp)
+    # the grid of a launch of KERNEL_BATCH reads at C = 8: 4 reads a warp,
+    # 64-thread blocks
+    blocks = KERNEL_BATCH // 4 * 32 // 64
+    floor = device_ms(lambda: stamped.nimble_empty_launch(
+        blocks, 64, torch.cuda.current_stream().cuda_stream), 50,
+        "nimble_empty_kernel")
+    print(f"[kernel] empty kernel, {blocks} blocks of 64 threads (the grid "
+          f"of {KERNEL_BATCH} reads at C=8): device time {floor:.4f} ms, "
+          f"the floor of a launch of that size")
     rows = []
     for label, packed, t, scalars, s_min in _probe_walk_inputs(seed):
         for full in (False, True):
@@ -784,6 +958,15 @@ def phase_probe_walk_kernel(seed: int):
             row.update(_bound(*_probe_walk_work(packed, t, KERNEL_BUCKETS[0],
                                                 8, full), row["device_ms"]))
             cold = _cold(row, kernel, "probe_walk_filter_kernel")
+            row["empty_launch_ms"] = floor
+            row["registers"] = usage.get((KERNEL_BUCKETS[0] + 15) // 16)
+            split, row["phase_split"] = "", None
+            if not full:
+                row["phase_split"] = phase_split(stamped, kernel,
+                                                 int(got.shape[0]))
+                split = "; phase split (cycles a warp, share): " + ", ".join(
+                    f"{ph} {c:.0f} ({row['phase_split']['share'][ph]:.2f})"
+                    for ph, c in row["phase_split"]["cycles"].items())
             flags = got[:, 1]
             anchored = int(((flags >> (16 if full else 18)) & 1).sum())
             host = int(((flags >> 17) & 1).sum())
@@ -799,7 +982,9 @@ def phase_probe_walk_kernel(seed: int):
                   f"{row['plain_kernels_per_call']:g}; bound "
                   f"{row['bound_ms']:.5f} ms by {row['bound_by']} "
                   f"({row['bound_bytes']} bytes, {row['bound_ops']} ops), "
-                  f"device time at {row['bound_share']:.3f} of it{cold}")
+                  f"device time at {row['bound_share']:.3f} of it{cold}"
+                  f"{split}")
+    shutil.rmtree(tmp, ignore_errors=True)
     return {"probe_walk_filter": rows}
 
 

@@ -32,9 +32,9 @@
 // and C = 8, about 1.5 MB per 8192-read launch with the table words it
 // touches, half a microsecond of HBM time at 3.35 TB/s.  What remains is
 // latency and issue: the three dependent loads before the walk (candidate
-// row, its row start, its reference words), then the serial chain of up to
-// 2*(Lmax-k) steps per read, each needing two votes over the read's
-// candidates, 2,048 warps of them at B = 8192 and C = 8.  PERF.md section
+// row, its row start, its reference words), then the walk's windows (one
+// per 32 steps and one more per event), each four reductions over the
+// read's candidates, 2,048 warps of them at B = 8192 and C = 8.  PERF.md section
 // 6 has the times.
 //
 // Design.
@@ -45,10 +45,11 @@
 // - The walk itself is nimble_walk::walk_lanes (csrc/span_walk.cuh, shared
 //   with csrc/probe_walk_filter.cu, which probes and filters around it in
 //   the same launch): it gathers its own reference words, compares 16
-//   bases a word, and walks chunks of 16 steps with two votes a step; up
-//   to NR = 8 (Lmax <= 128) its match words live in registers (one kernel
-//   per NR), above in dynamic shared memory (256 threads x 65 words at
-//   Lmax = 1024, above 48 KB after the opt-in).  This entry serves the
+//   bases a word, and walks by events, 32 steps a window with four group
+//   reductions, a step of its own only where the live candidates
+//   disagree; up to NR = 8 (Lmax <= 128) its step words live in registers
+//   (one kernel per NR), above in dynamic shared memory (256 threads x 65
+//   words at Lmax = 1024, above 48 KB after the opt-in).  This entry serves the
 //   mesh's shard step, which all-reduces the probe before the walk; the
 //   single-device passes launch probe_walk_filter.cu instead.
 
@@ -105,12 +106,13 @@ __global__ void fused_span_walk_kernel(const WalkArgs a) {
 
   const uint8_t* prow = a.packed + rb * static_cast<int64_t>(nb + 2);
   const int rdlen = __ldg(prow + nb) | (__ldg(prow + nb + 1) << 8);
-  const int64_t lib = a.lib != nullptr ? __ldg(a.lib + rb) : 0;
+  const int lib = a.lib != nullptr ? static_cast<int>(__ldg(a.lib + rb)) : 0;
   const bool live0 = cand_ok && __ldg(a.live0 + bc) != 0;
   const Lane s = nimble_walk::walk_lanes<NR>(
-      a.t, prow, rdlen, __ldg(a.anchor + rb), lib, __ldg(a.rows + bc),
-      __ldg(a.offs + bc), live0, nimble_walk::group_mask(lane, a.gbits),
-      smem + threadIdx.x);
+      a.t, prow, rdlen, static_cast<int>(__ldg(a.anchor + rb)), lib,
+      static_cast<int>(__ldg(a.rows + bc)),
+      static_cast<int>(__ldg(a.offs + bc)), live0,
+      nimble_walk::group_mask(lane, a.gbits), smem + threadIdx.x);
 
   if (cand_ok) a.live_out[bc] = (s.live >> lane) & 1u;
   if (read_ok && c == 0) {
@@ -148,8 +150,11 @@ extern "C" int nimble_fused_span_walk(
     void* stream) {
   if (B <= 0) return 0;
   const int nr = (Lmax + 15) / 16;
+  // the walk indexes the tables in 32 bits (the wrapper checks L * n_rows
+  // and L * n_words against 2^31)
   if (C < 1 || C > 32 || k <= 0 || k >= Lmax || n_rows < 1 ||
-      n_words < nr + 1)
+      n_words < nr + 1 || n_rows >= (int64_t{1} << 31) ||
+      n_words >= (int64_t{1} << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   int gbits = 0;
   while ((1 << gbits) < C) ++gbits;
@@ -161,8 +166,9 @@ extern "C" int nimble_fused_span_walk(
                    static_cast<const int64_t*>(lib),
                    WalkTables{static_cast<const int32_t*>(row_starts),
                               static_cast<const int32_t*>(row_lengths),
-                              static_cast<const uint32_t*>(ref), n_rows,
-                              n_words, Lmax, k, ref_pad},
+                              static_cast<const uint32_t*>(ref),
+                              static_cast<int>(n_rows),
+                              static_cast<int>(n_words), Lmax, k, ref_pad},
                    static_cast<uint8_t*>(live_out),
                    static_cast<int32_t*>(score_out),
                    static_cast<int32_t*>(mm_out),

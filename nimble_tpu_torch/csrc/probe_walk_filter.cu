@@ -3,7 +3,9 @@
 // walk and filter + pack.  Built by nimble_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through ctypes by nimble_tpu_torch/ops/probe_walk.py
-// (probe_walk), which allocates the output and checks every argument.
+// (probe_walk), which checks the tables once per tables object, passes
+// them as one argument block (ProbeTables, probe_walk_tables.h) and checks
+// the packed rows on every call.
 //
 // Replaces the device program of nimble_tpu/ops/engine_fast.py,
 // probe_walk_filter_packed_chunked (:1146, body _probe_walk_filter_impl)
@@ -47,27 +49,39 @@
 // (one, for a read that anchors at position 0), two key words, the
 // postings of its C candidates, their row spans and reference windows,
 // and writes 8 or 12 bytes: under 2 MB for an 8192-read launch, well under
-// a microsecond at 3.35 TB/s.  Not operations either: ~40 32-bit
-// operations a key and the walk's ~2 * (Lmax - k) voted steps.  What
-// remains is latency: a chain of dependent loads (row -> fingerprint row ->
-// key words -> bstart -> postings -> row start -> reference words) before
-// the walk's serial steps.  PERF.md section 6 has the times.
+// a microsecond at 3.35 TB/s, and below the time of an empty launch of the
+// same grid.  Not operations either: ~40 32-bit operations a key, a few
+// per walk window.  What remains is latency: a chain of dependent loads
+// (row -> fingerprint row -> slot -> postings -> row start -> reference
+// words), then the walk.  PERF.md section 6 has the times and the split
+// into phases.
 //
 // Design.
 // - A read owns a power-of-two group of G >= 8 lanes (G = 8 at C <= 8, so
-//   4 reads per warp, the walk kernel's mapping).  The probe takes G
-//   positions a round, lane j position round * G + j, each building its
-//   key straight from the packed row's words (two 16-base windows of
-//   span_walk.cuh's RowWords, bit-reversed to first-base-most-significant):
-//   no rolling state, no per-position table beyond the bucket row it
-//   needs.  A ballot
-//   over the group picks the round's first hitting position, and the group
-//   stops there; a read that anchors at position 0, as most do, reads one
-//   bucket row per hop.  The rounds are warp-uniform (every lane votes
-//   every round) until no group of the warp searches.
-// - The winner's bucket, lane and key come to every lane of the group by
-//   shuffle; lane c then loads candidate c (lanes c >= C load a valid
-//   posting and stay dead), and the group walks as in fused_span_walk.cu.
+//   4 reads per warp).  The grid is (blocks per library, L): the library
+//   is blockIdx.y, so no thread divides.  Every index is 32-bit (the host
+//   checks every table's extent and B * row width against 2^31).
+// - The probe takes G positions a round, lane j position round * G + j,
+//   each building its key straight from the packed row's words (two
+//   16-base windows of span_walk.cuh's RowWords, bit-reversed to
+//   first-base-most-significant).  A lane loads a hop's bucket row as
+//   16-byte vectors (ld.global.nc.v4.u32; W = 8 is two), both issued
+//   before its first compare, compares in registers and takes the lowest
+//   lane by a bit scan; the next hop's row only after a hop without a hit
+//   (issuing every hop's row at once doubled the rows read at max_probe 2
+//   and measured slower: PERF.md section 6).  The group's ballot
+//   takes the round's first hitting position (its lowest lane); that lane
+//   issues its slot's key halves, bstart and bcount right after the
+//   ballot and compares the key only after the rounds, and the shuffles
+//   bring its loaded values, so the chain waits for no trip to the slot
+//   behind the shuffles.  (Every hitting lane loading its slot at its
+//   compare, one ballot earlier, crowded a table beyond L2 with eight
+//   lanes' loads a read and measured slower.)  Only the winner's key is
+//   verified: a mismatch sets needs_host and nothing more is searched.  The rounds are warp-uniform
+//   (every lane votes every round) until no group of the warp searches.
+// - Lane c then loads candidate c (lanes c >= C load a valid posting and
+//   stay dead), and the group walks as in fused_span_walk.cu: the event
+//   walk of span_walk.cuh.
 // - The epilogue counts distinct rows with one shuffle per group lane and
 //   a ballot; lane 0 of the group gates and writes the row.
 // - The walk's register / shared-memory split is kept: NR <= 8 in
@@ -78,6 +92,7 @@
 
 #include <cuda_runtime.h>
 
+#include "probe_walk_tables.h"
 #include "span_walk.cuh"
 
 namespace {
@@ -89,27 +104,14 @@ using nimble_walk::WalkTables;
 
 constexpr int kRegThreads = 64;
 constexpr int kSmemThreads = 256;
+constexpr int kProbeVecs = 2;  // 16-byte row loads in flight a batch
 constexpr uint32_t kFpSalt = 0x7FEB352Du;  // ops/device_index.FP_SALT
 
 struct ProbeArgs {
-  const uint8_t* packed;        // (B0, ceil(Lmax/4) + 2)
-  const uint32_t* bkey_lo;      // (L, n_buckets, W)
-  const uint32_t* bkey_hi;
-  const uint32_t* bkey_fp;
-  const int32_t* bstart;
-  const int32_t* bcount;
-  const int32_t* postings_row;  // (L, n_postings)
-  const int32_t* postings_off;
-  const int32_t* s_min;         // (L, s_len); compact mode only
-  const int32_t* threshold;     // (L,) or null: threshold0
-  const int32_t* mismatches;    // (L,) or null: mismatches0
-  const uint8_t* discard_multiple;  // (L,) bool or null
-  const uint8_t* discard_nonzero;   // (L,) bool or null
-  int32_t* out;                 // (B, 2) compact or (B, 3) full
-  WalkTables t;
-  int64_t n_buckets, n_postings, s_len, threshold0, mismatches0;
-  int discard_multiple0, discard_nonzero0;
-  int B, B0, C, W, max_probe, gbits, full;
+  ProbeTables tab;
+  const uint8_t* packed;  // (B0, ceil(Lmax/4) + 2)
+  int32_t* out;           // (L * B0, 2) compact or (L * B0, 3) full
+  int B0, C, gbits;
 };
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
@@ -128,39 +130,51 @@ __device__ __forceinline__ uint32_t key_half(uint32_t window, int n) {
   return n == 16 ? r : r >> (2 * (16 - n));
 }
 
+// Bit j set where word j of the 16-byte vector equals fp.
+__device__ __forceinline__ unsigned hits4(const uint4& r, uint32_t fp) {
+  return static_cast<unsigned>(r.x == fp) |
+         (static_cast<unsigned>(r.y == fp) << 1) |
+         (static_cast<unsigned>(r.z == fp) << 2) |
+         (static_cast<unsigned>(r.w == fp) << 3);
+}
+
 template <int NR>
 __global__ void probe_walk_filter_kernel(const ProbeArgs a) {
   extern __shared__ uint32_t smem[];
+  const ProbeTables& tb = a.tab;
   const int lane = threadIdx.x & 31;
-  const int group_base = (lane >> a.gbits) << a.gbits;
   const int G = 1 << a.gbits;
+  const int group_base = (lane >> a.gbits) << a.gbits;
   const int c = lane - group_base;
-  const int64_t warp =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t first_read = warp * (32 >> a.gbits);
-  if (first_read >= a.B) return;  // the whole warp lies past the batch
-  const int64_t b = first_read + (lane >> a.gbits);
-  const bool read_ok = b < a.B;
-  const int64_t rb = read_ok ? b : 0;  // lanes past the batch: read 0, dead
-  const int64_t lib = rb / a.B0;
+  const int lib = blockIdx.y;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int first_row = warp << (5 - a.gbits);  // of this library's B0
+  if (first_row >= a.B0) return;  // the whole warp lies past the batch
+  const int r = first_row + (lane >> a.gbits);
+  const bool read_ok = r < a.B0;
+  const int b = lib * a.B0 + (read_ok ? r : 0);  // the result row
   const unsigned gmask = nimble_walk::group_mask(lane, a.gbits);
-  const WalkTables& t = a.t;
-  const int nb = (t.Lmax + 3) >> 2;
-  const uint8_t* prow = a.packed + (rb % a.B0) * static_cast<int64_t>(nb + 2);
+  const WalkTables t{tb.row_starts, tb.row_lengths, tb.ref, tb.n_rows,
+                     tb.n_words, tb.Lmax, tb.k, tb.ref_pad};
+  const int nb = (tb.Lmax + 3) >> 2;
+  // lanes past the batch read row 0 and stay dead
+  const uint8_t* prow = a.packed + (read_ok ? r : 0) * (nb + 2);
   const int read_len = __ldg(prow + nb) | (__ldg(prow + nb + 1) << 8);
   const nimble_walk::RowWords rw(prow, nb);
+  const int lib_bucket0 = lib * tb.n_buckets;  // the library's first row
+  // astart of a read without an anchor: slot (bucket 0, lane 0)
+  const int32_t astart0 = __ldg(tb.bstart + lib_bucket0 * tb.W);
 
   // --- probe: G positions a round until the group's first hit
-  const int k = t.k;
+  const int k = tb.k;
   const int half = k >> 1;
-  const int npos = read_ok ? min(t.Lmax - k + 1, read_len - k + 1) : 0;
-  const int64_t mask = a.n_buckets - 1;
-  const uint32_t* fp_tab = a.bkey_fp + lib * a.n_buckets * a.W;
+  const int npos = read_ok ? min(tb.Lmax - k + 1, read_len - k + 1) : 0;
+  const uint32_t mask = static_cast<uint32_t>(tb.n_buckets - 1);
+  const int vph = tb.W >> 2;  // 16-byte vectors a bucket row
   bool found = false;
   unsigned winners = 0u;
-  int my_p = 0, my_lane = 0;
-  int64_t my_bucket = 0;
-  uint32_t my_lo = 0u, my_hi = 0u;
+  int my_p = 0, my_slot = 0, my_start = 0, my_cnt = 0;
+  uint32_t my_lo = 0u, my_hi = 0u, my_klo = 0u, my_khi = 0u;
   for (int round = 0; __any_sync(kFull, !found && round < npos);
        round += G) {
     const int p = round + c;
@@ -171,58 +185,72 @@ __global__ void probe_walk_filter_kernel(const ProbeArgs a) {
       const uint32_t h = fmix32(lo ^ fmix32(hi));
       const uint32_t fp =
           fmix32(__funnelshift_l(hi, hi, 16) ^ fmix32(lo ^ kFpSalt));
-      for (int hop = 0; hop < a.max_probe && !hit; ++hop) {
-        const int64_t bk = (static_cast<int64_t>(h) + hop) & mask;
-        const uint32_t* row = fp_tab + bk * a.W;
-        for (int w = 0; w < a.W; ++w) {
-          if (__ldg(row + w) == fp) {
-            hit = true;
-            my_bucket = bk;
-            my_lane = w;
-            break;
-          }
+      for (int hop = 0; hop < tb.max_probe && !hit; ++hop) {
+        const int row0 =
+            (lib_bucket0 + static_cast<int>((h + hop) & mask)) * tb.W;
+        const uint4* row = reinterpret_cast<const uint4*>(tb.bkey_fp + row0);
+        // the row's words as 16-byte vectors, all loaded before the first
+        // compare (W = 8: two), then compared in registers
+        unsigned hits = 0u;
+        for (int q0 = 0; q0 < vph; q0 += kProbeVecs) {
+          uint4 vec[kProbeVecs];
+#pragma unroll
+          for (int i = 0; i < kProbeVecs; ++i)
+            if (q0 + i < vph) vec[i] = __ldg(row + q0 + i);
+#pragma unroll
+          for (int i = 0; i < kProbeVecs; ++i)
+            if (q0 + i < vph) hits |= hits4(vec[i], fp) << (4 * (q0 + i));
+        }
+        if (hits != 0u) {
+          my_slot = row0 + __ffs(hits) - 1;
+          my_lo = lo;
+          my_hi = hi;
+          hit = true;
         }
       }
       my_p = p;
-      my_lo = lo;
-      my_hi = hi;
     }
     const unsigned hits = __ballot_sync(kFull, hit) & gmask;
     if (hits != 0u) {  // only while the group searches
       found = true;
       winners = hits;
+      // the winner issues its slot's loads now: the group's shuffles find
+      // them under way (one lane a read: every position of a round may
+      // hit, and eight lanes' slot loads crowd a table that is not in L2)
+      if (lane == __ffs(hits) - 1) {
+        my_klo = __ldg(tb.bkey_lo + my_slot);
+        my_khi = __ldg(tb.bkey_hi + my_slot);
+        my_start = __ldg(tb.bstart + my_slot);
+        my_cnt = __ldg(tb.bcount + my_slot);
+      }
     }
   }
   // the winner's values to its group (every lane shuffles; a group without
-  // a hit reads its own lane and takes 0)
+  // a hit reads its own lane and takes the defaults); the key is compared
+  // only here, so no round waits for the slot's loads
+  const int my_bad = my_klo != my_lo || my_khi != my_hi;
   const int src = found ? __ffs(winners) - 1 : lane;
   const int win_p = __shfl_sync(kFull, my_p, src);
-  const long long win_bucket =
-      __shfl_sync(kFull, static_cast<long long>(my_bucket), src);
-  const int win_lane = __shfl_sync(kFull, my_lane, src);
-  const uint32_t key_lo = __shfl_sync(kFull, my_lo, src);
-  const uint32_t key_hi = __shfl_sync(kFull, my_hi, src);
+  const int win_bad = __shfl_sync(kFull, my_bad, src);
+  const int win_start = __shfl_sync(kFull, my_start, src);
+  const int win_cnt = __shfl_sync(kFull, my_cnt, src);
   const int anchor = found ? win_p : 0;
-  const int64_t bucket = found ? win_bucket : 0;
-  const int sel_lane = found ? win_lane : 0;
-  const int64_t slot = (lib * a.n_buckets + bucket) * a.W + sel_lane;
-  const bool fp_bad = found && (__ldg(a.bkey_lo + slot) != key_lo ||
-                                __ldg(a.bkey_hi + slot) != key_hi);
+  const bool fp_bad = found && win_bad != 0;
+  const int32_t astart = found ? win_start : astart0;
+  const int32_t acnt = found ? win_cnt : 0;
 
   // --- candidates
-  const int32_t astart = __ldg(a.bstart + slot);
-  const int32_t acnt = found ? __ldg(a.bcount + slot) : 0;
-  int64_t pidx = static_cast<int64_t>(astart) + c;
-  pidx = pidx < 0 ? 0 : (pidx > a.n_postings - 1 ? a.n_postings - 1 : pidx);
-  const int64_t post = lib * a.n_postings + pidx;
-  const int32_t cand_row = __ldg(a.postings_row + post);
+  const int pidx = nimble_walk::clamp_int(astart + c, 0, tb.n_postings - 1);
+  const int post = lib * tb.n_postings + pidx;
+  const int32_t cand_row = __ldg(tb.postings_row + post);
+  const int32_t cand_off = __ldg(tb.postings_off + post);
   const bool live0 = read_ok && c < a.C && c < acnt;
   const bool needs_host = (found && acnt > a.C) || fp_bad;
 
   // --- walk
   const Lane s = nimble_walk::walk_lanes<NR>(
-      t, prow, read_len, anchor, lib, cand_row,
-      __ldg(a.postings_off + post), live0, gmask, smem + threadIdx.x);
+      t, prow, read_len, anchor, lib, cand_row, cand_off, live0, gmask,
+      smem + threadIdx.x);
 
   // --- distinct live rows, mask, gates, pack
   const unsigned live = s.live >> group_base;  // bit j: group lane j
@@ -237,7 +265,7 @@ __global__ void probe_walk_filter_kernel(const ProbeArgs a) {
   const uint32_t lanes = live & ((1u << a.C) - 1u);
   const int score = found ? s.score + k : 0;
   const int mm = found ? s.acts - s.score : 0;
-  if (a.full) {
+  if (tb.full) {
     int32_t* o = a.out + b * 3;
     o[0] = astart;
     o[1] = static_cast<int32_t>(lanes | (found ? 1u << 16 : 0u) |
@@ -246,16 +274,16 @@ __global__ void probe_walk_filter_kernel(const ProbeArgs a) {
                                 static_cast<uint32_t>(mm));
     return;
   }
-  const int64_t len_at = read_len < a.s_len - 1 ? read_len : a.s_len - 1;
-  const int32_t s_min = __ldg(a.s_min + lib * a.s_len + len_at);
-  const int64_t thr = a.threshold ? __ldg(a.threshold + lib) : a.threshold0;
+  const int len_at = min(read_len, tb.s_len - 1);
+  const int32_t s_min = __ldg(tb.s_min + lib * tb.s_len + len_at);
+  const int64_t thr = tb.threshold ? __ldg(tb.threshold + lib) : tb.threshold0;
   const int64_t mis =
-      a.mismatches ? __ldg(a.mismatches + lib) : a.mismatches0;
-  const bool dmult = a.discard_multiple
-                         ? __ldg(a.discard_multiple + lib) != 0
-                         : a.discard_multiple0 != 0;
-  const bool dnz = a.discard_nonzero ? __ldg(a.discard_nonzero + lib) != 0
-                                     : a.discard_nonzero0 != 0;
+      tb.mismatches ? __ldg(tb.mismatches + lib) : tb.mismatches0;
+  const bool dmult = tb.discard_multiple
+                         ? __ldg(tb.discard_multiple + lib) != 0
+                         : tb.discard_multiple0 != 0;
+  const bool dnz = tb.discard_nonzero ? __ldg(tb.discard_nonzero + lib) != 0
+                                      : tb.discard_nonzero0 != 0;
   const bool passed = found && score >= thr && score >= s_min && mm <= mis &&
                       (distinct <= 1 || !dmult) && (mm == 0 || !dnz);
   int32_t* o = a.out + b * 2;
@@ -266,84 +294,62 @@ __global__ void probe_walk_filter_kernel(const ProbeArgs a) {
 }
 
 template <int NR>
-cudaError_t launch(const ProbeArgs& a, int64_t threads_total,
+cudaError_t launch(const ProbeArgs& a, int blocks_per_lib,
                    cudaStream_t stream) {
   const int threads = NR > 0 ? kRegThreads : kSmemThreads;
-  const int64_t blocks = (threads_total + threads - 1) / threads;
   size_t smem = 0;
   if constexpr (NR == 0) {
-    smem = static_cast<size_t>(threads) * (((a.t.Lmax + 15) >> 4) + 1) *
+    smem = static_cast<size_t>(threads) * (((a.tab.Lmax + 15) >> 4) + 1) *
            sizeof(uint32_t);
     const cudaError_t e = nimble_walk::allow_smem(
         reinterpret_cast<const void*>(probe_walk_filter_kernel<0>), smem);
     if (e != cudaSuccess) return e;
   }
-  probe_walk_filter_kernel<NR><<<static_cast<unsigned>(blocks), threads,
-                                 smem, stream>>>(a);
+  const dim3 grid(static_cast<unsigned>(blocks_per_lib),
+                  static_cast<unsigned>(a.tab.L));
+  probe_walk_filter_kernel<NR><<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// One launch of B reads (B0 packed rows; B = L * B0 when the tables hold L
-// libraries).  Returns 0 or a cudaError_t.
-extern "C" int nimble_probe_walk_filter(
-    const void* packed, const void* bkey_lo,
-    const void* bkey_hi, const void* bkey_fp, const void* bstart,
-    const void* bcount, const void* postings_row, const void* postings_off,
-    const void* ref, const void* row_starts, const void* row_lengths,
-    const void* s_min, const void* threshold, const void* mismatches,
-    const void* discard_multiple, const void* discard_nonzero, void* out,
-    int64_t n_buckets, int64_t n_postings, int64_t n_rows, int64_t n_words,
-    int64_t s_len, int64_t threshold0, int64_t mismatches0,
-    int discard_multiple0, int discard_nonzero0, int B, int B0, int C, int W,
-    int max_probe, int Lmax, int k, int ref_pad, int full, void* stream) {
-  if (B <= 0) return 0;
-  const int nr = (Lmax + 15) / 16;
-  if (B0 < 1 || C < 1 || C > 16 || W < 1 || max_probe < 1 || k < 2 ||
-      k > 32 || k >= Lmax || n_buckets < 1 ||
-      (n_buckets & (n_buckets - 1)) != 0 || n_postings < 1 || n_rows < 1 ||
-      n_words < nr + 1 || (!full && s_len < 1))
+// One launch of the B0 packed rows against the L libraries of *tab: L * B0
+// results, library major.  Returns 0 or a cudaError_t.
+extern "C" int nimble_probe_walk_filter(const ProbeTables* tab,
+                                        const void* packed, void* out, int B0,
+                                        int C, void* stream) {
+  if (B0 <= 0) return 0;
+  const ProbeTables& tb = *tab;
+  const int nr = (tb.Lmax + 15) / 16;
+  if (C < 1 || C > 16 || tb.L < 1 || tb.L > 65535 || tb.W < 4 ||
+      tb.W % 4 != 0 || tb.W > 32 || tb.max_probe < 1 || tb.k < 2 ||
+      tb.k > 32 || tb.k >= tb.Lmax || tb.n_buckets < 1 ||
+      (tb.n_buckets & (tb.n_buckets - 1)) != 0 || tb.n_postings < 1 ||
+      tb.n_rows < 1 || tb.n_words < nr + 1 || (!tb.full && tb.s_len < 1) ||
+      (reinterpret_cast<uintptr_t>(tb.bkey_fp) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   int gbits = 3;  // groups of at least 8 lanes: 8 positions a probe round
   while ((1 << gbits) < C) ++gbits;
-  const ProbeArgs a{
-      static_cast<const uint8_t*>(packed),
-      static_cast<const uint32_t*>(bkey_lo),
-      static_cast<const uint32_t*>(bkey_hi),
-      static_cast<const uint32_t*>(bkey_fp),
-      static_cast<const int32_t*>(bstart),
-      static_cast<const int32_t*>(bcount),
-      static_cast<const int32_t*>(postings_row),
-      static_cast<const int32_t*>(postings_off),
-      static_cast<const int32_t*>(s_min),
-      static_cast<const int32_t*>(threshold),
-      static_cast<const int32_t*>(mismatches),
-      static_cast<const uint8_t*>(discard_multiple),
-      static_cast<const uint8_t*>(discard_nonzero),
-      static_cast<int32_t*>(out),
-      WalkTables{static_cast<const int32_t*>(row_starts),
-                 static_cast<const int32_t*>(row_lengths),
-                 static_cast<const uint32_t*>(ref), n_rows, n_words, Lmax, k,
-                 ref_pad},
-      n_buckets, n_postings, s_len, threshold0, mismatches0,
-      discard_multiple0, discard_nonzero0, B, B0, C, W, max_probe, gbits,
-      full};
-  const int64_t reads_per_warp = 32 >> gbits;
-  const int64_t threads_total =
-      (B + reads_per_warp - 1) / reads_per_warp * 32;
+  const ProbeArgs a{tb, static_cast<const uint8_t*>(packed),
+                    static_cast<int32_t*>(out), B0, C, gbits};
+  const int reads_per_warp = 32 >> gbits;
+  const int threads = nr > kMaxRegWords ? kSmemThreads : kRegThreads;
+  const int64_t threads_per_lib =
+      (static_cast<int64_t>(B0) + reads_per_warp - 1) / reads_per_warp * 32;
+  const int blocks = static_cast<int>((threads_per_lib + threads - 1) /
+                                      threads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (nr > kMaxRegWords ? 0 : nr) {
-    case 1: e = launch<1>(a, threads_total, s); break;
-    case 2: e = launch<2>(a, threads_total, s); break;
-    case 3: e = launch<3>(a, threads_total, s); break;
-    case 4: e = launch<4>(a, threads_total, s); break;
-    case 5: e = launch<5>(a, threads_total, s); break;
-    case 6: e = launch<6>(a, threads_total, s); break;
-    case 7: e = launch<7>(a, threads_total, s); break;
-    case 8: e = launch<8>(a, threads_total, s); break;
-    default: e = launch<0>(a, threads_total, s); break;
+    case 1: e = launch<1>(a, blocks, s); break;
+    case 2: e = launch<2>(a, blocks, s); break;
+    case 3: e = launch<3>(a, blocks, s); break;
+    case 4: e = launch<4>(a, blocks, s); break;
+    case 5: e = launch<5>(a, blocks, s); break;
+    case 6: e = launch<6>(a, blocks, s); break;
+    case 7: e = launch<7>(a, blocks, s); break;
+    case 8: e = launch<8>(a, blocks, s); break;
+    default: e = launch<0>(a, blocks, s); break;
   }
   return static_cast<int>(e);
 }

@@ -29,31 +29,36 @@
 //   probe of probe_walk_filter.cu takes its keys from too); each
 //   phase-aligned reference word (__funnelshift_r, defined at phase 0) is
 //   XORed with the read word and ~(x | x >> 1) & 0x55555555 leaves bit 2j
-//   set where base j matches.  There is no global load in the step loop.
-//   Up to NR = 8 (Lmax <= 128) the match words live in registers (one
-//   instantiation per NR); above, each lane's NW reference words are
-//   staged in dynamic shared memory with cp.async (word i of thread t at
-//   [i * blockDim + t]) and turned into match words in place.
-// - The chain: a step is valid for a lane where it is alive and its read
-//   active, one interval of p per lane and walk, computed once.  Folding
-//   active into the votes keeps the result: an inactive read votes no
-//   valid lane, and a step without one changes nothing.  For each 16 steps
-//   the lane builds one word, valid at odd bits and valid & match at even
-//   bits; the 16 steps are unrolled, and a step is two votes on fixed bits
-//   of that word (off the chain: they do not depend on live), then
-//   la = live & A and lm = live & M with two predicated moves.  The group's
-//   live lanes are one mask held by each lane of the group; score and the
-//   steps with a live valid lane are kept as bits per chunk and counted
-//   once (mm is their difference).  The warp walks the union of the valid
-//   intervals of its lanes that start live, in chunks from the union's
-//   first step (forward) or last step (left), so no more than 15 steps a
-//   walk are spare.
+//   set where base j matches.  The match bits are then packed to one bit
+//   a step, 32 steps a word.  Up to NR = 8 (Lmax <= 128) those words live
+//   in registers (one instantiation per NR); above, each lane's NW
+//   reference words are staged in dynamic shared memory with cp.async
+//   (word i of thread t at [i * blockDim + t]) and turned into step words
+//   in place.  There is no global load in the walk.
+// - A step is valid for a lane where it is alive and its read active:
+//   one interval of p per lane and walk, computed once (an inactive read
+//   votes no valid lane, and a step without one changes nothing).
+// - The walk goes by events, not by steps.  Over a window of 32 steps each
+//   lane holds v (valid) and m (valid & match) for its candidate; over the
+//   group's live lanes four reductions (butterflies of warp shuffles) give
+//   anyM = OR m, allM = AND m, anyA = OR v, allA = AND v.  The step rule
+//   changes the live set only at the event steps E = (anyM & ~allM) |
+//   (~anyM & anyA & ~allA); every other step adds its anyM bit to score
+//   and its anyA bit to the steps acted on.  So the group adds the popcounts up to and
+//   including the first event in walk order (lowest bit forward, highest
+//   bit left), takes the event's live set (the live lanes that match
+//   there if any does, else the valid ones) by one ballot, and reduces
+//   again from the next step.  Each event removes a lane, so a walk has at
+//   most C - 1 of them.  A group down to one live lane meets no more
+//   events: that lane counts its steps left in closed form (a popcount a
+//   32 steps), so a read with one live candidate, the common case, walks
+//   no window at all.  The loops are warp-uniform (each group keeps its
+//   own position), so the warp's ballots and shuffles stay converged.
 
 #ifndef NIMBLE_SPAN_WALK_CUH_
 #define NIMBLE_SPAN_WALK_CUH_
 
 #include <cstdint>
-#include <utility>
 
 #include <cuda_runtime.h>
 
@@ -64,17 +69,18 @@ constexpr int kMaxRegWords = 8;  // NR above this stages in shared memory
 constexpr size_t kDefaultSmem = 48 * 1024;
 
 // The tables the walk reads, single or stacked on a leading library axis.
+// The callers' hosts check that L * n_rows and L * n_words lie below 2^31.
 struct WalkTables {
   const int32_t* row_starts;   // (L, n_rows)
   const int32_t* row_lengths;  // (L, n_rows)
   const uint32_t* ref;         // (L, n_words) 2-bit packed, 16 bases a word
-  int64_t n_rows;
-  int64_t n_words;
+  int n_rows;
+  int n_words;
   int Lmax, k, ref_pad;
 };
 
-__device__ __forceinline__ int clamp_int(int64_t v, int lo, int hi) {
-  return static_cast<int>(v < lo ? lo : (v > hi ? hi : v));
+__device__ __forceinline__ int clamp_int(int v, int lo, int hi) {
+  return v < lo ? lo : (v > hi ? hi : v);
 }
 
 // Bits 2j set where base j of the phase-aligned reference word equals base
@@ -83,6 +89,15 @@ __device__ __forceinline__ uint32_t match_word(uint32_t lo, uint32_t hi,
                                                unsigned sh, uint32_t rw) {
   const uint32_t x = __funnelshift_r(lo, hi, sh) ^ rw;
   return ~(x | (x >> 1)) & 0x55555555u;
+}
+
+// The 16 even bits of w (bit 2j) as bits j.
+__device__ __forceinline__ uint32_t even_bits(uint32_t w) {
+  w &= 0x55555555u;
+  w = (w | (w >> 1)) & 0x33333333u;
+  w = (w | (w >> 2)) & 0x0F0F0F0Fu;
+  w = (w | (w >> 4)) & 0x00FF00FFu;
+  return (w | (w >> 8)) & 0x0000FFFFu;
 }
 
 // A packed row's bases (base j at bits 2*(j%4) of byte j/4) as 16-base
@@ -119,36 +134,30 @@ struct RowWords {
   }
 };
 
-// Even bits 2j of the steps j < n of a 16-step chunk (n clamped to 0..16).
-__device__ __forceinline__ uint32_t steps_below(int n) {
-  n = min(max(n, 0), 16);
-  return n == 16 ? 0x55555555u : ((1u << (2 * n)) - 1u) & 0x55555555u;
+// Bits j < n (n clamped to 0..32).
+__device__ __forceinline__ uint32_t bits_below(int n) {
+  return n <= 0 ? 0u : (n >= 32 ? ~0u : (1u << n) - 1u);
 }
 
-// The lane's word for the 16 steps p = base..base+15 of one walk: bit 2j+1
-// set where step base+j is valid (alive and its read active: lo <= p < hi),
-// bit 2j where it is valid and the bases match (m: match bits of those
-// steps, from match_word).
-__device__ __forceinline__ uint32_t chunk_word(uint32_t m, int base, int lo,
-                                               int hi) {
-  const uint32_t v = steps_below(hi - base) & ~steps_below(lo - base);
-  return (v << 1) | (v & m);
+// Bit j set where step base + j lies in [lo, hi).
+__device__ __forceinline__ uint32_t range_bits(int base, int lo, int hi) {
+  return bits_below(hi - base) & ~bits_below(lo - base);
 }
 
-// The match bits of steps base..base+15 from the NR match words of steps
-// 0..16*NR-1 (bits of steps outside them are 0; base may be negative).  The
-// words are picked by selects, not indexed, so they stay in registers.
-template <int NR>
-__device__ __forceinline__ uint32_t match_at(const uint32_t (&mw)[NR],
+// The match bits of steps base..base+31 from the NQ step words of steps
+// 0..32*NQ-1 (bits of steps outside them are 0; base may be negative).
+// The words are picked by selects, not indexed, so they stay in registers.
+template <int NQ>
+__device__ __forceinline__ uint32_t steps_at(const uint32_t (&st)[NQ],
                                              int base) {
-  const int q = base >> 4;  // rounds down
+  const int q = base >> 5;  // rounds down
   uint32_t lo = 0u, hi = 0u;
 #pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    lo = i == q ? mw[i] : lo;
-    hi = i == q + 1 ? mw[i] : hi;
+  for (int i = 0; i < NQ; ++i) {
+    lo = i == q ? st[i] : lo;
+    hi = i == q + 1 ? st[i] : hi;
   }
-  return __funnelshift_r(lo, hi, 2u * static_cast<unsigned>(base & 15));
+  return __funnelshift_r(lo, hi, static_cast<unsigned>(base & 31));
 }
 
 struct Lane {
@@ -157,50 +166,43 @@ struct Lane {
                     // acts - score)
 };
 
-// Step T of a chunk, on bit pair J of the chunk word w: the votes of valid
-// (bit 2J+1) and valid & match (bit 2J), then la = live & A, lm = live & M;
-// if la != 0: live = la, acted |= 1 << T; if lm != 0: live = lm,
-// matched |= 1 << T (lm is within la).  In PTX so that each bit test is one
-// instruction with its mask as an immediate.
-template <int J, int T>
-__device__ __forceinline__ void chunk_step(unsigned& live, unsigned& matched,
-                                           unsigned& acted, uint32_t w) {
-  asm volatile(
-      "{\n\t"
-      ".reg .pred pv, pm, pa, pl;\n\t"
-      ".reg .b32 a, m;\n\t"
-      "and.b32 a, %3, %4;\n\t"
-      "setp.ne.u32 pv, a, 0;\n\t"
-      "and.b32 m, %3, %5;\n\t"
-      "setp.ne.u32 pm, m, 0;\n\t"
-      "vote.sync.ballot.b32 a, pv, 0xffffffff;\n\t"
-      "vote.sync.ballot.b32 m, pm, 0xffffffff;\n\t"
-      "and.b32 a, a, %0;\n\t"
-      "and.b32 m, m, %0;\n\t"
-      "setp.ne.u32 pa, a, 0;\n\t"
-      "setp.ne.u32 pl, m, 0;\n\t"
-      "@pa mov.b32 %0, a;\n\t"
-      "@pl mov.b32 %0, m;\n\t"
-      "@pa or.b32 %2, %2, %6;\n\t"
-      "@pl or.b32 %1, %1, %6;\n\t"
-      "}"
-      : "+r"(live), "+r"(matched), "+r"(acted)
-      : "r"(w), "n"(2u << (2 * J)), "n"(1u << (2 * J)), "n"(1u << T));
-}
-
-template <bool DESC, int... T>
-__device__ __forceinline__ void chunk_steps(Lane& s, uint32_t w,
-                                            std::integer_sequence<int, T...>) {
-  unsigned matched = 0u, acted = 0u;
-  (chunk_step<DESC ? 15 - T : T, T>(s.live, matched, acted, w), ...);
-  s.score += __popc(matched);
-  s.acts += __popc(acted);
-}
-
-// The 16 steps of a chunk word, j = 0..15 (or 15..0 when DESC).
-template <bool DESC>
-__device__ __forceinline__ void walk_chunk(Lane& s, uint32_t w) {
-  chunk_steps<DESC>(s, w, std::make_integer_sequence<int, 16>{});
+// One window of 32 steps for the group of G lanes: v and m are this
+// lane's valid and valid & match bits (0 unless its group walks and it is
+// live); bit j is step base + j in either direction.  Adds the steps up to
+// and including the window's first event in walk order (the lowest bit
+// forward, the highest when LEFT) to score and acts and, at the event,
+// sets the live lanes.  Returns the event's bit, or -1 without one.  Every
+// lane of the warp calls it.  The group's OR and AND are butterflies of
+// whole-warp shuffles within the group (redux.sync on each group's mask
+// measured slower: PERF.md section 6).
+template <bool LEFT>
+__device__ __forceinline__ int walk_window(Lane& s, bool go, uint32_t v,
+                                           uint32_t m, unsigned gmask,
+                                           int lane, int G) {
+  const bool me = (s.live >> lane) & 1u;
+  uint32_t any_m = me ? m : 0u, all_m = me ? m : ~0u;
+  uint32_t any_a = me ? v : 0u, all_a = me ? v : ~0u;
+  for (int d = 1; d < G; d <<= 1) {
+    any_m |= __shfl_xor_sync(kFull, any_m, d);
+    all_m &= __shfl_xor_sync(kFull, all_m, d);
+    any_a |= __shfl_xor_sync(kFull, any_a, d);
+    all_a &= __shfl_xor_sync(kFull, all_a, d);
+  }
+  const uint32_t ev =
+      go ? (any_m & ~all_m) | (~any_m & any_a & ~all_a) : 0u;
+  const int e = ev == 0u ? -1 : (LEFT ? 31 - __clz(ev) : __ffs(ev) - 1);
+  const uint32_t upto =
+      e < 0 ? ~0u : (LEFT ? ~0u << e : (2u << e) - 1u);  // 2u << 31 == 0
+  if (go) {
+    s.score += __popc(any_m & upto);
+    s.acts += __popc(any_a & upto);
+  }
+  const int at = e < 0 ? 0 : e;
+  const uint32_t pick = (any_m >> at) & 1u ? m : v;
+  const unsigned keep =
+      __ballot_sync(kFull, e >= 0 && ((pick >> at) & 1u)) & gmask;
+  if (e >= 0) s.live = keep;
+  return e;
 }
 
 // The walk of one candidate per lane; every lane of the warp must call it
@@ -217,25 +219,25 @@ __device__ __forceinline__ void walk_chunk(Lane& s, uint32_t w) {
 template <int NR>
 __device__ __forceinline__ Lane walk_lanes(const WalkTables& t,
                                            const uint8_t* prow, int read_len,
-                                           int64_t anc, int64_t lib,
-                                           int64_t row_in_lib, int64_t off,
-                                           bool live0, unsigned gmask,
-                                           uint32_t* sw) {
+                                           int anc, int lib, int row_in_lib,
+                                           int off, bool live0,
+                                           unsigned gmask, uint32_t* sw) {
+  const int lane = threadIdx.x & 31;
   const int nr = NR > 0 ? NR : (t.Lmax + 15) >> 4;
+  const int nq = (nr + 1) >> 1;  // step words of 32 steps
   const RowWords row_words(prow, (t.Lmax + 3) >> 2);
-  const int64_t row = lib * t.n_rows + row_in_lib;
-  const int64_t base = off - anc;
-  const int64_t start = __ldg(t.row_starts + row) + base + t.ref_pad;
+  const int row = lib * t.n_rows + row_in_lib;
+  const int base = off - anc;
+  const int start = __ldg(t.row_starts + row) + base + t.ref_pad;
   const unsigned sh = 2u * static_cast<unsigned>(start & 15);
-  int64_t w0 = start >> 4;
-  const int64_t w_max = t.n_words - (nr + 1);
-  w0 = w0 < 0 ? 0 : (w0 > w_max ? w_max : w0);
+  const int w0 = clamp_int(start >> 4, 0, t.n_words - (nr + 1));
   const uint32_t* win = t.ref + lib * t.n_words + w0;
 
   // Each walk's valid steps, alive and active, as one interval of p per
   // lane.  Forward: alive while p < row_len - base, active for
   // anchor + k <= p < read_len.  Left (p <= P - 2, P = Lmax - k + 1):
-  // alive while p >= -base, active for p < anchor.
+  // alive while p >= -base, active for p < anchor.  f_lo and l_hi are the
+  // same in every lane of a read.
   const int P = t.Lmax - t.k + 1;
   const int f_lo = clamp_int(anc + t.k, t.k, t.Lmax);
   const int f_hi = min(clamp_int(__ldg(t.row_lengths + row) - base, -1,
@@ -244,17 +246,25 @@ __device__ __forceinline__ Lane walk_lanes(const WalkTables& t,
   const int l_lo = clamp_int(-base, 0, t.Lmax);
   const int l_hi = clamp_int(anc, 0, P - 1);  // exclusive
 
-  uint32_t mw[NR > 0 ? NR : 1];
+  uint32_t st[NR > 0 ? (NR + 1) / 2 : 1];
   if constexpr (NR > 0) {
     uint32_t rw[NR + 1];  // the row's aligned words, each loaded once
 #pragma unroll
     for (int j = 0; j <= NR; ++j) rw[j] = row_words.aligned_word(j);
-    uint32_t lo = __ldg(win);
+    uint32_t wd[NR + 1];
 #pragma unroll
-    for (int i = 0; i < NR; ++i) {
-      const uint32_t hi = __ldg(win + i + 1);
-      mw[i] = match_word(lo, hi, sh, row_words.join(rw[i], rw[i + 1]));
-      lo = hi;
+    for (int i = 0; i <= NR; ++i) wd[i] = __ldg(win + i);
+#pragma unroll
+    for (int i = 0; i < (NR + 1) / 2; ++i) {
+      const uint32_t a = match_word(wd[2 * i], wd[2 * i + 1], sh,
+                                    row_words.join(rw[2 * i], rw[2 * i + 1]));
+      const uint32_t b =
+          2 * i + 1 < NR
+              ? match_word(wd[2 * i + 1], wd[min(2 * i + 2, NR)], sh,
+                           row_words.join(rw[2 * i + 1],
+                                          rw[min(2 * i + 2, NR)]))
+              : 0u;
+      st[i] = even_bits(a) | (even_bits(b) << 16);
     }
   } else {
     for (int i = 0; i <= nr; ++i) {
@@ -270,42 +280,92 @@ __device__ __forceinline__ Lane walk_lanes(const WalkTables& t,
           match_word(sw[i * blockDim.x], sw[(i + 1) * blockDim.x], sh,
                      row_words.word(i));
     }
+    // in place: step word j from match words 2j and 2j + 1 (j <= 2j)
+    for (int j = 0; j < nq; ++j) {
+      const uint32_t b =
+          2 * j + 1 < nr ? even_bits(sw[(2 * j + 1) * blockDim.x]) : 0u;
+      sw[j * blockDim.x] = even_bits(sw[2 * j * blockDim.x]) | (b << 16);
+    }
   }
+  // the match bits of steps b..b+31 (0 outside 0..32*nq-1)
+  const auto step_bits = [&](int b) -> uint32_t {
+    if constexpr (NR > 0) {
+      return steps_at(st, b);
+    } else {
+      const int q = b >> 5;  // rounds down
+      const uint32_t lo = q >= 0 && q < nq ? sw[q * blockDim.x] : 0u;
+      const uint32_t hi =
+          q + 1 >= 0 && q + 1 < nq ? sw[(q + 1) * blockDim.x] : 0u;
+      return __funnelshift_r(lo, hi, static_cast<unsigned>(b & 31));
+    }
+  };
 
   Lane s;
   s.live = __ballot_sync(kFull, live0) & gmask;
   s.score = 0;
   s.acts = 0;
-  // the warp walks the union of the valid intervals of its live lanes: a
-  // lane not live at the start never votes live, and a step where no live
-  // lane of the warp is valid is a no-op
-  const bool fw = live0 && f_lo < f_hi;
-  const bool lw = live0 && l_lo < l_hi;
-  const int wf_lo = __reduce_min_sync(kFull, fw ? f_lo : t.Lmax);
-  const int wf_hi = __reduce_max_sync(kFull, fw ? f_hi : 0);
-  const int wl_lo = __reduce_min_sync(kFull, lw ? l_lo : t.Lmax);
-  const int wl_hi = __reduce_max_sync(kFull, lw ? l_hi : 0);
+  // the group walks the union of the valid intervals of its lanes that
+  // start live (a lane not live at the start never becomes live, and a
+  // step where no live lane is valid changes nothing)
+  const int G = __popc(gmask);
+  int f_end = live0 && f_lo < f_hi ? f_hi : 0;
+  int l_beg = live0 && l_lo < l_hi ? l_lo : t.Lmax;
+  for (int d = 1; d < G; d <<= 1) {
+    f_end = max(f_end, __shfl_xor_sync(kFull, f_end, d));
+    l_beg = min(l_beg, __shfl_xor_sync(kFull, l_beg, d));
+  }
 
-  // the match bits of steps base..base+15 (0 outside 0..16*nr-1)
-  const auto match_bits = [&](int b) -> uint32_t {
-    if constexpr (NR > 0) {
-      return match_at(mw, b);
-    } else {
-      const int q = b >> 4;  // rounds down
-      const uint32_t lo = q >= 0 && q < nr ? sw[q * blockDim.x] : 0u;
-      const uint32_t hi = q + 1 >= 0 && q + 1 < nr ? sw[(q + 1) * blockDim.x]
-                                                    : 0u;
-      return __funnelshift_r(lo, hi, 2u * static_cast<unsigned>(b & 15));
+  // the steps left: forward from cur up, then left from top down
+  int cur = f_lo, top = l_hi - 1;
+  // A group with one live lane meets no event: that lane adds its steps
+  // left in closed form, and the group's walk ends (the counts reach the
+  // group's other lanes by one shuffle at the end)
+  int own_score = 0, own_acts = 0;
+  const auto close_if_one = [&]() {
+    if (__popc(s.live) != 1 || (cur >= f_end && top < l_beg)) return;
+    if ((s.live >> lane) & 1u) {
+      for (int b = cur; b < f_hi; b += 32) {
+        const uint32_t v = range_bits(b, cur, f_hi);
+        own_score += __popc(v & step_bits(b));
+        own_acts += __popc(v);
+      }
+      const int l_end = min(l_hi, top + 1);
+      for (int b = l_lo; b < l_end; b += 32) {
+        const uint32_t v = range_bits(b, l_lo, l_end);
+        own_score += __popc(v & step_bits(b));
+        own_acts += __popc(v);
+      }
     }
+    cur = max(cur, f_end);
+    top = min(top, l_beg - 1);
   };
-  // chunks of 16 steps from the warp's first valid forward step up, then
-  // from its last valid left step down
+  close_if_one();
+  // forward: windows from f_lo up; the next starts after an event
 #pragma unroll 1
-  for (int b = wf_lo; b < wf_hi; b += 16)
-    walk_chunk<false>(s, chunk_word(match_bits(b), b, f_lo, f_hi));
+  while (__any_sync(kFull, cur < f_end)) {
+    const bool go = cur < f_end;
+    const bool me = go && ((s.live >> lane) & 1u);
+    const uint32_t v = me ? range_bits(cur, f_lo, f_hi) : 0u;
+    const int e = walk_window<false>(s, go, v, v & step_bits(cur), gmask,
+                                     lane, G);
+    cur = !go ? cur : (e < 0 ? cur + 32 : cur + e + 1);
+    close_if_one();
+  }
+  // left: windows from l_hi - 1 down (bit j: step top - 31 + j)
 #pragma unroll 1
-  for (int b = wl_hi - 16; b + 16 > wl_lo; b -= 16)
-    walk_chunk<true>(s, chunk_word(match_bits(b), b, l_lo, l_hi));
+  while (__any_sync(kFull, top >= l_beg)) {
+    const bool go = top >= l_beg;
+    const int b = top - 31;
+    const bool me = go && ((s.live >> lane) & 1u);
+    const uint32_t v = me ? range_bits(b, l_lo, l_hi) : 0u;
+    const int e =
+        walk_window<true>(s, go, v, v & step_bits(b), gmask, lane, G);
+    top = !go ? top : (e < 0 ? b - 1 : b + e - 1);
+    close_if_one();
+  }
+  const int src = s.live != 0u ? __ffs(s.live) - 1 : lane;
+  s.score += __shfl_sync(kFull, own_score, src);
+  s.acts += __shfl_sync(kFull, own_acts, src);
   return s;
 }
 

@@ -20,8 +20,10 @@ against every one of the L libraries: L*B results, library major (row
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
+import weakref
 from typing import Optional
 
 import torch
@@ -31,10 +33,29 @@ from nimble_tpu_torch.ops.device_tables import FilterScalars, IndexTables
 
 MAX_CANDIDATES = 16  # the results pack the live lanes in 16 bits
 MAX_K = 32           # a key half of k/2 or k - k/2 bases fits 32 bits
+MAX_INDEX = 2**31    # the kernel indexes in 32 bits
+MAX_LIBRARIES = 65535  # the grid's y extent
 
 _lib = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
+
+
+class _ProbeTables(ctypes.Structure):
+    """``struct ProbeTables`` of ``csrc/probe_walk_tables.h``, field for
+    field: the kernel's argument block."""
+
+    _fields_ = (
+        [(name, ctypes.c_void_p) for name in (
+            "bkey_lo", "bkey_hi", "bkey_fp", "bstart", "bcount",
+            "postings_row", "postings_off", "ref", "row_starts",
+            "row_lengths", "s_min", "threshold", "mismatches",
+            "discard_multiple", "discard_nonzero")]
+        + [("threshold0", ctypes.c_int64), ("mismatches0", ctypes.c_int64)]
+        + [(name, ctypes.c_int32) for name in (
+            "discard_multiple0", "discard_nonzero0", "L", "n_buckets", "W",
+            "max_probe", "n_postings", "n_rows", "n_words", "s_len", "Lmax",
+            "k", "ref_pad", "full")])
 
 
 def _kernel_lib():
@@ -42,9 +63,9 @@ def _kernel_lib():
     with _lib_lock:
         if _lib is None:
             lib = _build.load_library("probe_walk_filter")
-            vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-            lib.nimble_probe_walk_filter.argtypes = (
-                [vp] * 17 + [i64] * 7 + [ci] * 11 + [vp])
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            lib.nimble_probe_walk_filter.argtypes = [
+                ctypes.POINTER(_ProbeTables), vp, vp, ci, ci, vp]
             lib.nimble_probe_walk_filter.restype = ci
             lib.nimble_cuda_error_string.argtypes = [ci]
             lib.nimble_cuda_error_string.restype = ctypes.c_char_p
@@ -57,52 +78,113 @@ _TABLES = ("bkey_lo", "bkey_hi", "bkey_fp", "bstart", "bcount",
            "row_lengths")
 
 
-def _check_args(packed, t: IndexTables, scalars, s_min, bucket: int,
-                c_max: int) -> tuple:
-    """Raises ValueError on anything the kernel does not take; returns
-    (B results, L libraries, stacked)."""
+def _check_packed(packed, bucket: int) -> None:
     if packed.dim() != 2 or packed.dtype != torch.uint8 \
             or packed.shape[1] != (bucket + 3) // 4 + 2:
         raise ValueError(
             f"packed: expected (B, {(bucket + 3) // 4 + 2}) torch.uint8, got "
             f"{tuple(packed.shape)} {packed.dtype}")
+    if not packed.is_contiguous():
+        raise ValueError("packed must be contiguous")
+
+
+def _check_c_max(c_max: int) -> None:
     if not 1 <= c_max <= MAX_CANDIDATES:
         raise ValueError(f"c_max={c_max} not in [1, {MAX_CANDIDATES}]")
-    if not 2 <= t.k <= MAX_K or t.k >= bucket:
-        raise ValueError(f"k={t.k} must lie in [2, {MAX_K}] and below "
-                         f"bucket={bucket}")
-    if (scalars is None) != (s_min is None):
-        raise ValueError("scalars and s_min come together (compact mode) "
-                         "or not at all (full mode)")
+
+
+class _Checked:
+    """What one tables object passed (checked on its first call): the
+    device, library count and geometry, and per (bucket, mode) the
+    kernel's argument block with the gates and ``s_min`` it was built
+    from (a call with other gate objects builds and checks it anew)."""
+
+    def __init__(self, t: IndexTables, device: torch.device):
+        self.ref = weakref.ref(t)
+        self.device = device
+        self.stacked = t.bkey_fp.dim() == 3
+        self.L = t.bkey_fp.shape[0] if self.stacked else 1
+        self.blocks: dict = {}
+
+
+_checked: dict = {}  # id(tables) -> _Checked, dropped with the tables
+
+
+def _check_tables(t: IndexTables, device: torch.device) -> _Checked:
+    """Raises ValueError on tables the kernel does not take: one library's
+    or stacked, int32, contiguous, consistent shapes, on ``device`` (the
+    first call's packed rows')."""
     if t.bkey_fp.dim() not in (2, 3):
         raise ValueError(f"bkey_fp: {tuple(t.bkey_fp.shape)}, want (n_buckets,"
                          " W) or stacked (L, n_buckets, W)")
     stacked = t.bkey_fp.dim() == 3
-    L = t.bkey_fp.shape[0] if stacked else 1
-    lead = (L,) if stacked else ()
+    lead = (t.bkey_fp.shape[0],) if stacked else ()
     n_buckets, W = t.bkey_fp.shape[-2:]
     if n_buckets != t.bucket_mask + 1 or n_buckets & (n_buckets - 1):
         raise ValueError(f"{n_buckets} buckets: want a power of two, "
                          f"bucket_mask + 1 = {t.bucket_mask + 1}")
-    nw = (bucket + 15) // 16 + 1
-    if t.ref_codes_packed.shape[-1] < nw:
-        raise ValueError(f"ref_codes_packed {tuple(t.ref_codes_packed.shape)}"
-                         f": want >= {nw} words")
     extent = {name: lead + (getattr(t, name).shape[-1],) for name in (
         "postings_row", "ref_codes_packed", "row_starts")}
-    expect = {"packed": (packed, tuple(packed.shape), torch.uint8)}
     for name in _TABLES:
         shape = (lead + (n_buckets, W) if name.startswith("b") else
                  extent[{"postings_off": "postings_row",
                          "row_lengths": "row_starts"}.get(name, name)])
-        expect[name] = (getattr(t, name), shape, torch.int32)
+        _check_tensor(name, getattr(t, name), shape, torch.int32, device)
+    return _Checked(t, device)
+
+
+def _check_tensor(name, x, shape, dtype, device) -> None:
+    if tuple(x.shape) != shape or x.dtype != dtype:
+        raise ValueError(f"{name}: expected {shape} {dtype}, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, packed on {device}")
+
+
+def _tables_entry(t: IndexTables, device: torch.device) -> _Checked:
+    """The tables' checks, run on the first call with this tables object
+    (held weakly, keyed on its identity: the frozen dataclass's ``==``
+    compares tensors) and on no later one."""
+    entry = _checked.get(id(t))
+    if entry is None or entry.ref() is not t:
+        entry = _check_tables(t, device)
+        _checked[id(t)] = entry
+        weakref.finalize(t, _checked.pop, id(t), None)
+    elif device != entry.device:
+        raise ValueError(f"packed is on {device}, the tables on "
+                         f"{entry.device}")
+    return entry
+
+
+def _block(entry: _Checked, t: IndexTables, scalars, s_min, bucket: int):
+    """The kernel's argument block for (bucket, mode) with these gates,
+    checked and built on first use.  Raises ValueError on what the kernel
+    does not take."""
+    full = scalars is None
+    key = (bucket, full)
+    cached = entry.blocks.get(key)
+    if cached is not None and cached[1] is scalars and cached[2] is s_min:
+        return cached[0]
+    if not 2 <= t.k <= MAX_K or t.k >= bucket:
+        raise ValueError(f"k={t.k} must lie in [2, {MAX_K}] and below "
+                         f"bucket={bucket}")
+    lead = (entry.L,) if entry.stacked else ()
+    if (scalars is None) != (s_min is None):
+        raise ValueError("scalars and s_min come together (compact mode) "
+                         "or not at all (full mode)")
+    nw = (bucket + 15) // 16 + 1
+    if t.ref_codes_packed.shape[-1] < nw:
+        raise ValueError(f"ref_codes_packed {tuple(t.ref_codes_packed.shape)}"
+                         f": want >= {nw} words")
     if s_min is not None:
-        expect["s_min"] = (s_min, lead + tuple(s_min.shape[len(lead):]),
-                           torch.int32)
         if s_min.dim() != len(lead) + 1 or s_min.shape[-1] < 1:
             raise ValueError(f"s_min: {tuple(s_min.shape)}, want "
                              f"{lead + ('n',)}")
-        if stacked:
+        _check_tensor("s_min", s_min, tuple(s_min.shape), torch.int32,
+                      entry.device)
+        if entry.stacked:
             for name, dtype in (("score_threshold", torch.int32),
                                 ("num_mismatches", torch.int32),
                                 ("discard_multiple", torch.bool),
@@ -111,17 +193,60 @@ def _check_args(packed, t: IndexTables, scalars, s_min, bucket: int,
                 if not isinstance(x, torch.Tensor):
                     raise ValueError(f"scalars.{name}: stacked tables take "
                                      f"(L,) tensors, got {type(x).__name__}")
-                expect[f"scalars.{name}"] = (x, (L,), dtype)
-    for name, (x, shape, dtype) in expect.items():
-        if tuple(x.shape) != shape or x.dtype != dtype:
-            raise ValueError(f"{name}: expected {shape} {dtype}, got "
-                             f"{tuple(x.shape)} {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if x.device != packed.device:
-            raise ValueError(f"{name} is on {x.device}, packed on "
-                             f"{packed.device}")
-    return packed.shape[0] * L, L, stacked
+                _check_tensor(f"scalars.{name}", x, (entry.L,), dtype,
+                              entry.device)
+    block = _ProbeTables()
+    if entry.device.type == "cuda":
+        _fill_block(block, entry, t, scalars, s_min, bucket)
+    entry.blocks[key] = (block, scalars, s_min)
+    return block
+
+
+def _fill_block(block, entry: _Checked, t: IndexTables, scalars, s_min,
+                bucket: int) -> None:
+    """The kernel's own refusals (ValueError), then the block's fields."""
+    n_buckets, W = t.bkey_fp.shape[-2:]
+    if W % 4 or not 4 <= W <= 32 or t.bkey_fp.data_ptr() % 16:
+        raise ValueError(
+            f"bkey_fp: the kernel loads a bucket row as 16-byte vectors: "
+            f"want W a multiple of 4 in [4, 32] and a 16-byte aligned "
+            f"table, got W={W} at {t.bkey_fp.data_ptr():#x}")
+    big = [name for name in _TABLES if getattr(t, name).numel() >= MAX_INDEX]
+    if s_min is not None and s_min.numel() >= MAX_INDEX:
+        big.append("s_min")
+    if big:
+        raise ValueError(f"{', '.join(big)}: 2^31 elements or more; the "
+                         f"kernel indexes in 32 bits")
+    if entry.L > MAX_LIBRARIES:
+        raise ValueError(f"{entry.L} libraries: the kernel takes at most "
+                         f"{MAX_LIBRARIES}")
+    for name in _TABLES:
+        setattr(block, "ref" if name == "ref_codes_packed" else name,
+                getattr(t, name).data_ptr())
+    if s_min is not None:
+        block.s_min = s_min.data_ptr()
+        block.s_len = s_min.shape[-1]
+        if entry.stacked:
+            block.threshold = scalars.score_threshold.data_ptr()
+            block.mismatches = scalars.num_mismatches.data_ptr()
+            block.discard_multiple = scalars.discard_multiple.data_ptr()
+            block.discard_nonzero = scalars.discard_nonzero.data_ptr()
+        else:
+            block.threshold0 = int(scalars.score_threshold)
+            block.mismatches0 = int(scalars.num_mismatches)
+            block.discard_multiple0 = int(bool(scalars.discard_multiple))
+            block.discard_nonzero0 = int(bool(scalars.discard_nonzero))
+    block.L = entry.L
+    block.n_buckets = n_buckets
+    block.W = W
+    block.max_probe = t.max_probe
+    block.n_postings = t.postings_row.shape[-1]
+    block.n_rows = t.row_starts.shape[-1]
+    block.n_words = t.ref_codes_packed.shape[-1]
+    block.Lmax = bucket
+    block.k = t.k
+    block.ref_pad = t.ref_pad
+    block.full = int(s_min is None)
 
 
 def probe_walk_plain(packed, t: IndexTables, *, bucket: int, c_max: int,
@@ -153,43 +278,39 @@ def probe_walk(packed, t: IndexTables, *, bucket: int, c_max: int,
     ``(L,)`` gate tensors and an ``(L, bucket + 1)`` ``s_min``, and serve
     every row against every library: ``(L*B, .)``, library major.
 
-    CUDA tensors launch ``csrc/probe_walk_filter.cu`` (or raise); CPU
-    tensors take :func:`probe_walk_plain`.  ``probe_walk.launches`` counts
-    kernel launches.
+    The tables, gates and ``s_min`` are checked on the first call with
+    this tables object (and these gate objects), the packed rows and
+    ``c_max`` on every call; anything the kernel does not take raises
+    ValueError.  CUDA tensors launch ``csrc/probe_walk_filter.cu`` (or
+    raise); CPU tensors take :func:`probe_walk_plain`.
+    ``probe_walk.launches`` counts kernel launches.
     """
-    B, L, stacked = _check_args(packed, t, scalars, s_min, bucket, c_max)
+    _check_packed(packed, bucket)
+    _check_c_max(c_max)
     dev = packed.device
+    entry = _tables_entry(t, dev)
+    block = _block(entry, t, scalars, s_min, bucket)
     if dev.type == "cpu":
         return probe_walk_plain(packed, t, bucket=bucket, c_max=c_max,
                                 scalars=scalars, s_min=s_min)
     if dev.type != "cuda":
         raise ValueError(f"probe_walk: unsupported device {dev}")
-    full = scalars is None
-    out = packed.new_empty((B, 3 if full else 2), dtype=torch.int32)
+    B0 = packed.shape[0]
+    B = B0 * entry.L
+    width = 3 if scalars is None else 2
+    if B * width >= MAX_INDEX or packed.numel() >= MAX_INDEX:
+        raise ValueError(f"{B0} packed rows: the results or the rows reach "
+                         f"2^31 elements; the kernel indexes in 32 bits")
+    out = packed.new_empty((B, width), dtype=torch.int32)
     if B == 0:
         return out
     kernel = _kernel_lib()
-    gates = (None, None, None, None) if full or not stacked else (
-        scalars.score_threshold.data_ptr(), scalars.num_mismatches.data_ptr(),
-        scalars.discard_multiple.data_ptr(),
-        scalars.discard_nonzero.data_ptr())
-    values = (0, 0, 0, 0) if full or stacked else (
-        int(scalars.score_threshold), int(scalars.num_mismatches),
-        int(bool(scalars.discard_multiple)),
-        int(bool(scalars.discard_nonzero)))
-    n_buckets, W = t.bkey_fp.shape[-2:]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    # a device context only for a card other than the current one
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
         err = kernel.nimble_probe_walk_filter(
-            packed.data_ptr(),
-            *(getattr(t, name).data_ptr() for name in _TABLES),
-            None if full else s_min.data_ptr(), *gates, out.data_ptr(),
-            n_buckets, t.postings_row.shape[-1], t.row_starts.shape[-1],
-            t.ref_codes_packed.shape[-1],
-            0 if full else s_min.shape[-1], *values,
-            B, packed.shape[0], c_max, W, t.max_probe, bucket, t.k,
-            t.ref_pad, int(full), stream,
-        )
+            block, packed.data_ptr(), out.data_ptr(), B0, c_max,
+            torch.cuda.current_stream().cuda_stream)
     if err:
         msg = kernel.nimble_cuda_error_string(err).decode()
         raise RuntimeError(f"probe_walk kernel launch failed: {msg}")

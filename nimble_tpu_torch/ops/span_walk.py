@@ -179,6 +179,9 @@ def _check_args(packed, anchor, rows, offs, live0, t, bucket, lib):
     }
     if lib is not None:
         expect["lib"] = (lib, (B,), torch.int64)
+    if ref.numel() >= 2**31 or t.row_starts.numel() >= 2**31:
+        raise ValueError("ref_codes_packed or row_starts: 2^31 elements or "
+                         "more; the kernel indexes the tables in 32 bits")
     for name, (x, shape, dtype) in expect.items():
         if tuple(x.shape) != shape or x.dtype != dtype:
             raise ValueError(

@@ -82,7 +82,8 @@ def initialize(
 
 
 def shutdown() -> None:
-    """Leave the process group :func:`initialize` joined, if any."""
+    """Leave the process group :func:`initialize` joined, if any; safe to
+    call again, and after a failed collective has left it."""
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -249,7 +250,13 @@ def _all_gather_np(a: np.ndarray) -> np.ndarray:
     leading host axis: ``dist.all_gather`` over CPU tensors."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, t)
+    try:
+        dist.all_gather(out, t)
+    except RuntimeError:
+        # a failed collective (a lost host's timeout) ends the group here:
+        # a gloo group still alive at interpreter exit can abort the process
+        shutdown()
+        raise
     return np.stack([o.numpy() for o in out])
 
 

@@ -15,7 +15,9 @@ parsing to the TSV.  ``write_bam_workload`` writes the same library with a
 synthetic 10x BAM over it, the recipe of ``bench.py --bam``.
 ``write_multi_workload`` / ``write_multi_bam_workload`` write several
 libraries (library i from seed ``seed + i``) and one input drawn from all of
-them, the recipe of ``bench.py --libraries``.
+them, the recipe of ``bench.py --libraries``.  :func:`allele_family` draws
+a library of near-identical alleles, whose reads keep several candidates
+live through the walk.
 """
 
 from __future__ import annotations
@@ -107,20 +109,55 @@ def generate(*, n_features=50, feat_len=500, read_len=90, n_reads=1 << 16,
     starts = rng.integers(0, feat_len - span + 1, n_reads)
 
     def sample(offset):
-        mat = codes[rows[:, None], starts[:, None] + offset + np.arange(read_len)]
-        mat = np.ascontiguousarray(mat, dtype=np.int8)
-        mutate = rng.random(n_reads) < 0.2
-        pos = rng.integers(0, read_len, n_reads)
-        delta = rng.integers(1, 4, n_reads).astype(np.int8)
-        mat[mutate, pos[mutate]] = (mat[mutate, pos[mutate]] + delta[mutate]) % 4
-        junk = rng.random(n_reads) < 0.05
-        mat[junk] = rng.integers(0, 4, (int(junk.sum()), read_len), dtype=np.int8)
-        return mat
+        return _sample_reads(rng, codes, rows, starts + offset, read_len)
 
     r1 = sample(0)
     r2 = np.ascontiguousarray((3 - sample(read_len + gap))[:, ::-1]) \
         if paired else None
     return feats, doubled, r1, r2
+
+
+def _sample_reads(rng, codes: np.ndarray, rows: np.ndarray,
+                  starts: np.ndarray, read_len: int) -> np.ndarray:
+    """Fragments ``codes[rows, starts:starts + read_len]`` with the bench's
+    error model: ~20% with one substitution, ~5% replaced by junk."""
+    n_reads = len(rows)
+    mat = codes[rows[:, None], starts[:, None] + np.arange(read_len)]
+    mat = np.ascontiguousarray(mat, dtype=np.int8)
+    mutate = rng.random(n_reads) < 0.2
+    pos = rng.integers(0, read_len, n_reads)
+    delta = rng.integers(1, 4, n_reads).astype(np.int8)
+    mat[mutate, pos[mutate]] = (mat[mutate, pos[mutate]] + delta[mutate]) % 4
+    junk = rng.random(n_reads) < 0.05
+    mat[junk] = rng.integers(0, 4, (int(junk.sum()), read_len), dtype=np.int8)
+    return mat
+
+
+def allele_family(*, n_alleles=8, feat_len=1500, divergence=0.01,
+                  read_len=90, n_reads=8192, seed=0):
+    """An allele family from ``seed``, the shape of a KIR or MHC library:
+    ``n_alleles`` variants of one random feature, each allele after the
+    first differing from it at ``round(divergence * feat_len)`` positions
+    (a substitution each), and reads sampled from the doubled rows with
+    :func:`generate`'s error model.  Most reads hold several live
+    candidates (the alleles sharing their k-mers) that part where the
+    alleles differ.  Returns (features, doubled rows, (n_reads, read_len)
+    int8 codes)."""
+    rng = np.random.default_rng(seed)
+    first = encode_bases(_features(rng, 1, feat_len)[0])
+    n_sites = int(round(divergence * feat_len))
+    alleles = [first]
+    for _ in range(n_alleles - 1):
+        codes = first.copy()
+        sites = rng.choice(feat_len, n_sites, replace=False)
+        codes[sites] = (codes[sites] + rng.integers(1, 4, n_sites)) % 4
+        alleles.append(codes)
+    feats = [_BASES[a.astype(np.int64)].tobytes().decode() for a in alleles]
+    doubled = [x for s in feats for x in (s, revcomp(s))]
+    codes = np.stack([encode_bases(s) for s in doubled])
+    rows = rng.integers(0, len(doubled), n_reads)
+    starts = rng.integers(0, feat_len - read_len + 1, n_reads)
+    return feats, doubled, _sample_reads(rng, codes, rows, starts, read_len)
 
 
 def _write_library(path: str, feats: List[str]) -> str:

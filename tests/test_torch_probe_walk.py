@@ -7,9 +7,18 @@ one launch) for CUDA tensors and takes its plain twin, the torch chain of
 
 - the wrapper refuses, with ValueError, every argument the kernel does not
   take, in both modes and for single and stacked tables;
+- the tables, gates and ``s_min`` are checked once per tables object
+  (and gate objects), the packed rows and ``c_max`` on every call: a bad
+  table is refused on its first call, a bad ``packed`` after good calls
+  still is, and a new tables object is checked anew;
 - in front of a stand-in kernel library, tensors that report a CUDA device
-  reach the kernel entry, a failed launch raises instead of taking the
-  plain chain, and ``probe_walk.launches`` counts only launches that ran;
+  reach the kernel entry as one argument block (``_ProbeTables``, whose
+  layout equals ``csrc/probe_walk_tables.h``'s as the host's C++ compiler
+  lays it out), entering no device context on the current device; the
+  kernel's own refusals (bucket rows not 16-byte loadable, extents of
+  2^31) raise ValueError, a failed build or launch raises instead of
+  taking the plain chain, and ``probe_walk.launches`` counts only launches
+  that ran;
 - a scalar per-read probe in the kernel's own order (first position, first
   hop with a hit, lowest lane, verify that lane only, stop) equals the JAX
   package's ``_probe_bucketed`` bit for bit: phase-A splits, a crowded
@@ -25,9 +34,10 @@ tests/test_torch_probe_walk.py``).  Every output is an integer: exact
 equality throughout.
 """
 
-import contextlib
+import ctypes
 import dataclasses
 import shutil
+import subprocess
 import types
 
 import numpy as np
@@ -53,6 +63,7 @@ from nimble_tpu_torch.ops.device_tables import (
     tables_from_bucketed_index,
 )
 from nimble_tpu_torch.utils.dna import encode_bases, revcomp
+from nimble_tpu_torch.workload import allele_family
 
 M32 = 0xFFFFFFFF
 SALT = 0x7FEB352D  # the fingerprint's salt (ops/device_index.FP_SALT)
@@ -236,6 +247,21 @@ def _single(seed=3, bucket=92, c_max=8, n=96):
             bucket, c_max)
 
 
+def _allele_family(seed=7, bucket=92, c_max=8, n=96):
+    """The same on ``workload.allele_family``'s library (8 alleles of one
+    1,500 bp feature at 1% divergence, doubled) and 90 bp reads from it:
+    most reads keep several candidates live through the walk."""
+    _feats, doubled, mat = allele_family(n_reads=n, seed=seed)
+    t = tables_from_bucketed_index(build_bucketed_index(build_index(doubled)),
+                                   "cpu")
+    cfg = _cfg()
+    lens = np.full(n, mat.shape[1], dtype=np.int32)
+    return (torch.from_numpy(pack_reads(mat, lens, bucket)), t,
+            FilterScalars.from_config(cfg),
+            torch.from_numpy(s_min_table(cfg.score_percent, bucket)),
+            bucket, c_max)
+
+
 def _stacked_parts(seed, bucket, n):
     """(indexes, configs, packed reads) of three libraries of different
     sizes and gates, the reads drawn from each in turn."""
@@ -374,17 +400,35 @@ def _on_card(args):
 @pytest.fixture
 def stand_in(monkeypatch):
     """A stand-in kernel library returning ``state["rc"]``; the plain chain
-    and the CUDA runtime calls are replaced so that neither can run."""
-    state = {"rc": 0, "calls": []}
+    and the CUDA runtime calls are replaced so that neither can run.  The
+    current device is ``state["current"]``; ``state["entered"]`` records
+    the device contexts entered."""
+    state = {"rc": 0, "calls": [], "current": 0, "entered": []}
+
+    def launch(block, *rest):
+        state["calls"].append((_copy_block(block),) + rest)
+        return state["rc"]
+
     lib = types.SimpleNamespace(
-        nimble_probe_walk_filter=lambda *a: state["calls"].append(a)
-        or state["rc"],
+        nimble_probe_walk_filter=launch,
         nimble_cuda_error_string=lambda e: b"an illegal memory access")
     monkeypatch.setattr(pw, "_kernel_lib", lambda: lib)
-    monkeypatch.setattr(pw.torch.cuda, "device",
-                        lambda dev: contextlib.nullcontext())
+
+    class Context:
+        def __init__(self, dev):
+            state["entered"].append(dev)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(pw.torch.cuda, "device", Context)
+    monkeypatch.setattr(pw.torch.cuda, "current_device",
+                        lambda: state["current"])
     monkeypatch.setattr(pw.torch.cuda, "current_stream",
-                        lambda dev: types.SimpleNamespace(cuda_stream=7))
+                        lambda dev=None: types.SimpleNamespace(cuda_stream=7))
 
     def no_plain(*a, **kw):
         raise AssertionError("the plain chain ran for a card's tensors")
@@ -393,10 +437,19 @@ def stand_in(monkeypatch):
     return state
 
 
+def _copy_block(block):
+    """A copy of the block the stand-in was handed (the wrapper reuses its
+    block from call to call)."""
+    return pw._ProbeTables.from_buffer_copy(block)
+
+
+@pytest.mark.parametrize("current", [0, 1], ids=["current", "other"])
 @pytest.mark.parametrize("stacked", [False, True], ids=["single", "stacked"])
 @pytest.mark.parametrize("full", [False, True], ids=["compact", "full"])
-def test_card_tensors_reach_the_kernel(stand_in, full, stacked):
+def test_card_tensors_reach_the_kernel(stand_in, full, stacked, current):
+    stand_in["current"] = current
     args = _on_card((_stacked if stacked else _single)(n=10))
+    packed, t, scalars, s_min, bucket, c_max = args
     before = pw.probe_walk.launches
     out = _call(args, full)
     assert pw.probe_walk.launches == before + 1
@@ -404,14 +457,37 @@ def test_card_tensors_reach_the_kernel(stand_in, full, stacked):
     L = 3 if stacked else 1
     assert out.device.type == "cuda" and out.dtype == torch.int32
     assert tuple(out.shape) == (10 * L, 3 if full else 2)
-    assert a[0] == args[0].data_ptr()  # packed
-    assert a[16] == out.data_ptr() and a[-1] == 7  # output, stream
-    # B, B0, C, W, max_probe, Lmax, k, full
-    assert a[26:29] == (10 * L, 10, 8)
-    assert a[-3:-1] == (args[1].ref_pad, int(full))
-    gates = a[12:16]
+    block, packed_ptr, out_ptr, B0, C, stream = a
+    assert (packed_ptr, out_ptr, B0, C, stream) == (
+        packed.data_ptr(), out.data_ptr(), 10, 8, 7)
+    # a device context only for a card other than the current one
+    assert stand_in["entered"] == ([] if current == 0 else [out.device])
+    tables = dict(ref="ref_codes_packed", **{f: f for f in (
+        "bkey_lo", "bkey_hi", "bkey_fp", "bstart", "bcount", "postings_row",
+        "postings_off", "row_starts", "row_lengths")})
+    for field, name in tables.items():
+        assert getattr(block, field) == getattr(t, name).data_ptr(), field
+    assert (block.L, block.n_buckets, block.W, block.max_probe) == (
+        L, t.bucket_mask + 1, 8, t.max_probe)
+    assert (block.n_postings, block.n_rows, block.n_words) == (
+        t.postings_row.shape[-1], t.row_starts.shape[-1],
+        t.ref_codes_packed.shape[-1])
+    assert (block.Lmax, block.k, block.ref_pad, block.full) == (
+        bucket, t.k, t.ref_pad, int(full))
+    assert (block.s_min is None) == full
+    gates = (block.threshold, block.mismatches, block.discard_multiple,
+             block.discard_nonzero)
     assert all(g is None for g in gates) == (full or not stacked)
-    assert (a[11] is None) == full  # s_min
+    if not full:
+        assert block.s_min == s_min.data_ptr()
+        assert block.s_len == s_min.shape[-1]
+    if not full and stacked:
+        assert gates == tuple(getattr(scalars, f).data_ptr() for f in (
+            "score_threshold", "num_mismatches", "discard_multiple",
+            "discard_nonzero"))
+    if not full and not stacked:
+        assert (block.threshold0, block.mismatches0, block.discard_multiple0,
+                block.discard_nonzero0) == (40, 1, 0, 0)
 
 
 @pytest.mark.parametrize("rc", [1, 700])
@@ -426,6 +502,24 @@ def test_a_failed_launch_raises_and_is_not_counted(stand_in, rc):
     assert pw.probe_walk.launches == before
 
 
+def test_a_failed_build_raises_and_is_not_counted(monkeypatch, tmp_path):
+    """No nvcc: the build raises on the card's tensors; nothing falls back
+    to the plain chain."""
+    def no_nvcc():
+        raise RuntimeError("nvcc not found (stand-in)")
+
+    monkeypatch.setattr(pw, "_lib", None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "find_nvcc", no_nvcc)
+    monkeypatch.setattr(pw, "probe_walk_plain", None)
+    args = _on_card(_single(n=10))
+    before = pw.probe_walk.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _call(args, False)
+    assert pw.probe_walk.launches == before
+
+
 def test_an_empty_launch_is_not_counted(stand_in):
     packed, *rest = _single(n=10)
     args = _on_card((packed[:0].contiguous(), *rest))
@@ -433,6 +527,134 @@ def test_an_empty_launch_is_not_counted(stand_in):
     out = _call(args, True)
     assert tuple(out.shape) == (0, 3) and not stand_in["calls"]
     assert pw.probe_walk.launches == before
+
+
+def _misaligned(x):
+    """``x``'s values in a contiguous view 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 4, dtype=x.dtype)
+    at = (-(buf.data_ptr() // 4) + 1) % 4
+    view = buf[at:at + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+    return view
+
+
+def _six_lanes(t):
+    """``t`` with its bucket rows cut to 6 lanes: the plain twin takes it,
+    the kernel does not (a row is not whole 16-byte vectors)."""
+    return dataclasses.replace(t, **{
+        f: getattr(t, f)[..., :6].contiguous() for f in (
+            "bkey_lo", "bkey_hi", "bkey_fp", "bstart", "bcount")})
+
+
+@pytest.mark.parametrize("case", ["width 6", "misaligned", "2^31 elements",
+                                  "2^31 results"])
+@pytest.mark.parametrize("full", [False, True], ids=["compact", "full"])
+def test_kernel_refusals_raise_before_a_launch(stand_in, monkeypatch, case,
+                                               full):
+    """What only the kernel refuses (the plain twin takes it): bucket rows
+    that are not whole aligned 16-byte vectors, and extents at 2^31."""
+    packed, t, scalars, s_min, bucket, c_max = _single(n=10)
+    match = "bkey_fp"
+    if case == "width 6":
+        t = _six_lanes(t)
+    elif case == "misaligned":
+        t = dataclasses.replace(t, bkey_fp=_misaligned(t.bkey_fp))
+    elif case == "2^31 elements":  # scaled down: the same test, 2^31 -> 4096
+        monkeypatch.setattr(pw, "MAX_INDEX", 4096)
+        match = "2\\^31 elements or more"
+    args = _on_card((packed, t, scalars, s_min, bucket, c_max))
+    if case == "2^31 results":  # per call, after the tables' checks passed
+        _call(args, full)
+        stand_in["calls"].clear()
+        monkeypatch.setattr(pw, "MAX_INDEX", 10 * (3 if full else 2))
+        match = "reach 2\\^31 elements"
+    before = pw.probe_walk.launches
+    with pytest.raises(ValueError, match=match):
+        _call(args, full)
+    assert not stand_in["calls"] and pw.probe_walk.launches == before
+
+
+# --- the checks, once per tables object -----------------------------------
+
+def test_tables_are_checked_once_per_tables_object(monkeypatch):
+    checked = []
+    real = pw._check_tables
+
+    def counting(t, device):
+        checked.append(t)
+        return real(t, device)
+
+    monkeypatch.setattr(pw, "_check_tables", counting)
+    packed, t, scalars, s_min, bucket, c_max = args = _single(n=12)
+    _call(args, False)
+    _call(args, True)
+    _call(args, False)
+    assert checked == [t]
+    # a bad packed after good calls: still refused
+    with pytest.raises(ValueError, match="packed"):
+        _call((packed.int(),) + args[1:], False)
+    with pytest.raises(ValueError, match="c_max"):
+        _call(args[:5] + (0,), False)
+    # other gate objects with the same tables: checked on their first call
+    with pytest.raises(ValueError, match="s_min"):
+        _call((packed, t, scalars, s_min[None], bucket, c_max), False)
+    _call((packed, t, FilterScalars.from_config(_cfg()), s_min.clone(),
+           bucket, c_max), False)
+    assert checked == [t]
+    # a new tables object, good or bad, is checked anew
+    same = dataclasses.replace(t)
+    _call((packed, same) + args[2:], False)
+    bad = dataclasses.replace(t, bstart=t.bstart.long())
+    with pytest.raises(ValueError, match="bstart"):
+        _call((packed, bad) + args[2:], False)
+    with pytest.raises(ValueError, match="bstart"):
+        _call((packed, bad) + args[2:], False)
+    assert checked == [t, same, bad, bad]
+    # packed on another device than the checked tables
+    with pytest.raises(ValueError, match="packed is on meta"):
+        _call((torch.empty_like(packed, device="meta"),) + args[1:], False)
+
+
+def test_checked_tables_are_held_weakly():
+    args = _single(n=8)
+    t = args[1]
+    _call(args, False)
+    key = id(t)
+    assert pw._checked[key].ref() is t
+    del args, t
+    import gc
+
+    gc.collect()
+    assert key not in pw._checked
+
+
+def test_the_argument_block_matches_the_c_header(tmp_path):
+    """``_ProbeTables`` lays out ``struct ProbeTables`` as the host's C++
+    compiler does (same ABI as nvcc's host side): every field's offset and
+    the size."""
+    gxx = shutil.which("g++") or shutil.which("c++")
+    if gxx is None:
+        pytest.skip("needs a C++ compiler (g++ or c++) on PATH")
+    fields = [f for f, _ in pw._ProbeTables._fields_]
+    src = tmp_path / "layout.cpp"
+    src.write_text(
+        '#include <cstddef>\n#include <cstdio>\n#include "probe_walk_tables.h"\n'
+        "int main() {\n"
+        + "".join(f'  std::printf("%zu\\n", offsetof(ProbeTables, {f}));\n'
+                  for f in fields)
+        + '  std::printf("%zu\\n", sizeof(ProbeTables));\n  return 0;\n}\n')
+    exe = tmp_path / "layout"
+    subprocess.run([gxx, "-std=c++17", "-I", str(_build.CSRC_DIR), "-o",
+                    str(exe), str(src)], check=True, capture_output=True,
+                   timeout=120)
+    got = [int(x) for x in subprocess.run(
+        [str(exe)], check=True, capture_output=True, text=True,
+        timeout=60).stdout.split()]
+    want = [getattr(pw._ProbeTables, f).offset for f in fields] + [
+        ctypes.sizeof(pw._ProbeTables)]
+    assert got == want
 
 
 # --- the plain twin on the CPU --------------------------------------------
@@ -508,6 +730,8 @@ def _to(args, device):
 
 def _card_case(name):
     """Inputs of one card case, on the CPU."""
+    if name == "allele family":
+        return _allele_family(n=700)
     if name.startswith("stacked"):
         return _stacked(n=1000)
     if name.startswith("bucket"):
@@ -529,7 +753,8 @@ def _card_case(name):
 
 CARD_CASES = ["bucket 64", "bucket 92", "bucket 128", "bucket 160",
               "bucket 1024", "c_max 3", "c_max 16", "stacked", "max_probe 2",
-              "planted collisions", "zero-padded rows", "reads of 30-41 bases"]
+              "planted collisions", "zero-padded rows", "reads of 30-41 bases",
+              "allele family"]
 
 
 @pytest.mark.cuda
