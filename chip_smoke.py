@@ -226,11 +226,11 @@ PROBE_WALK_CASE_KEYS = ("input", "mode", "B", "max_probe", "device_ms",
                         "kernels_per_call", "plain_kernels_per_call",
                         "bound_ms", "bound_by", "bound_bytes", "bound_ops",
                         "bound_share", "cold_bound_share", "empty_launch_ms",
-                        "registers", "phase_split")
+                        "registers", "phase_split", "trace_fallbacks")
 GATHER_CASE_KEYS = ("N", "W", "M", "case", "design", "smem_kib",
                     "device_ms", "cold_device_ms", "plain_device_ms",
                     "library_device_ms", "bound_ms", "bound_bytes",
-                    "bound_share", "cold_bound_share")
+                    "bound_share", "cold_bound_share", "trace_fallbacks")
 # the card's peak rates for the bounds (NVIDIA H100 SXM data sheet, at the
 # full 700 W): HBM bytes per second, and 32-bit operations per second
 # outside the tensor cores (the float32 rate, 67 T/s, used for the walks'
@@ -299,6 +299,15 @@ def device_ms(fn, iters: int, kernel: str = "") -> float:
     from nimble_tpu_torch.utils.metrics import device_ms as measure
 
     return measure(fn, iters, kernel)
+
+
+def trace_fallbacks() -> int:
+    """Device times taken so far by the mean of profiler traces that each
+    missed one kernel record (``utils.metrics.device_ms.fallbacks``); a
+    row's ``trace_fallbacks`` is how many of its device times were."""
+    from nimble_tpu_torch.utils.metrics import device_ms as measure
+
+    return measure.fallbacks
 
 
 def cold_device_ms(fn, iters: int, kernel: str) -> float:
@@ -426,13 +435,14 @@ def _bound(n_bytes: int, n_ops: int, device: float) -> dict:
 
 
 def _walk_steps(cand, t, bucket: int):
-    """(live lanes, lane steps, read steps) of the walk on these
-    candidates: the lanes live at the start; each such lane's valid steps,
-    where it is alive and its read active (forward anchor + k <= p <
-    min(read_len, the row's end), left max(0, -base) <= p < min(anchor,
-    Lmax - k), base = off - anchor), the walk of ``csrc/span_walk.cuh``;
-    per read the steps of the union of its live lanes' intervals, where
-    the group votes.  A lane that dies on the way is counted to its end."""
+    """(live lanes, [(lane steps, read steps)] forward and left) of the
+    walk on these candidates: the lanes live at the start; each such
+    lane's valid steps, where it is alive and its read active (forward
+    anchor + k <= p < min(read_len, the row's end), left max(0, -base) <=
+    p < min(anchor, Lmax - k), base = off - anchor), the walk of
+    ``csrc/span_walk.cuh``; per read the steps of the union of its live
+    lanes' intervals, which its group walks.  A lane that dies on the way
+    is counted to its end."""
     import torch
 
     k, P = t.k, bucket - t.k + 1
@@ -448,25 +458,37 @@ def _walk_steps(cand, t, bucket: int):
     l_lo = (-base).clamp(0, bucket)
     l_hi = anchor.clamp(0, P - 1)
     live = cand.live0
-    lane_steps = torch.where(
-        live, (f_hi - f_lo).clamp(min=0) + (l_hi - l_lo).clamp(min=0), 0)
     # a read's forward intervals share their start and its left intervals
     # their end
-    read_steps = ((torch.where(live, f_hi, 0).amax(1) - f_lo[:, 0])
-                  .clamp(min=0)
-                  + (l_hi[:, 0] - torch.where(live, l_lo, bucket).amin(1))
-                  .clamp(min=0))
-    return live, lane_steps, read_steps
+    forward = (torch.where(live, (f_hi - f_lo).clamp(min=0), 0),
+               (torch.where(live, f_hi, 0).amax(1) - f_lo[:, 0]).clamp(min=0))
+    left = (torch.where(live, (l_hi - l_lo).clamp(min=0), 0),
+            (l_hi[:, 0] - torch.where(live, l_lo, bucket).amin(1))
+            .clamp(min=0))
+    return live, (forward, left)
 
 
 def _walk_ops(cand, t, bucket: int) -> int:
-    """32-bit operations of the walk on these candidates: the word compare
-    (5 per live lane and word) and the steps (3 per live lane and valid
-    step, 4 per read and step of its union; ``_walk_steps``)."""
-    live, lane_steps, read_steps = _walk_steps(cand, t, bucket)
+    """32-bit operations of the event walk of ``csrc/span_walk.cuh`` on
+    these candidates (valid steps of ``_walk_steps``).  Per live lane the
+    compare: 5 per match word.  A read with one live lane walks no window:
+    3 per 32 of its valid steps in each direction (an AND, two popcounts).
+    A read with more walks the union of its live lanes' intervals in
+    windows of 32 steps, ceil(union / 32) a direction: per window 2 per
+    live lane (its valid and match words), 4 per live lane past the first
+    (the group's OR and AND of both) and 8 for the group (the event word,
+    its bit scan, two popcounts).  The window an event restarts is not
+    counted; a lane that dies is counted to the union's end."""
+    live, directions = _walk_steps(cand, t, bucket)
     nr = (bucket + 15) // 16
-    return (5 * nr * int(live.sum()) + 3 * int(lane_steps.sum())
-            + 4 * int(read_steps.sum()))
+    n_live = live.sum(1)
+    one = n_live == 1
+    ops = 5 * nr * int(n_live.sum())
+    for lane_steps, read_steps in directions:
+        ops += 3 * int(((lane_steps + 31) // 32)[one].sum())
+        windows = ((read_steps + 31) // 32)[n_live > 1]
+        ops += int((windows * (6 * n_live[n_live > 1] + 4)).sum())
+    return ops
 
 
 def _fused_walk_work(cand, t, bucket: int):
@@ -540,6 +562,7 @@ def phase_kernel(seed: int):
 
         got = walk()
         torch.cuda.synchronize()
+        n_fallbacks = trace_fallbacks()
         row = {"Lmax": bucket, "max_abs_err": _check_equal(
             f"fused_span_walk Lmax={bucket}", got, walk_plain())}
         row.update(_timings(walk, walk_plain, "fused_span_walk_kernel"))
@@ -552,6 +575,7 @@ def phase_kernel(seed: int):
         row["small_batch_device_ms"] = device_ms(
             lambda b=bucket: fused_span_walk(*small, t, bucket=b), 50,
             "fused_span_walk_kernel")
+        row["trace_fallbacks"] = trace_fallbacks() - n_fallbacks
         print(f"[kernel] fused_span_walk B={KERNEL_BATCH} C=8 Lmax={bucket}"
               f": bit-equal to plain (live lanes "
               f"{float(got[0].float().mean()):.3f}, score sum "
@@ -563,7 +587,9 @@ def phase_kernel(seed: int):
               f"({row['bound_bytes']} bytes, {row['bound_ops']} ops), "
               f"device time at {row['bound_share']:.3f} of it; "
               f"B={SMALL_BATCH}: device time "
-              f"{row['small_batch_device_ms']:.4f} ms")
+              f"{row['small_batch_device_ms']:.4f} ms; device times by the "
+              f"mean of a trace missing one record: "
+              f"{row['trace_fallbacks']}")
         rows["fused_span_walk"].append(row)
 
         cargs = (cand.reads, cand.read_lens, cand.anchor, cand.rows,
@@ -580,6 +606,7 @@ def phase_kernel(seed: int):
                 _check_equal(f"double vs fused Lmax={bucket}",
                              (got_d[0] != 0, got_d[1], got_d[2]), got)
             T, Tl = masks["f_alive"].shape[2], masks["l_alive"].shape[2]
+            n_fallbacks = trace_fallbacks()
             row = {"Lmax": bucket, "T": T, "Tl": Tl, "max_abs_err": err}
             row.update(_timings(lambda: double_walk(**masks),
                                 lambda: double_walk_plain(**masks),
@@ -588,6 +615,7 @@ def phase_kernel(seed: int):
             row["library_ms"] = None
             cold = _cold(row, lambda: double_walk(**masks),
                          "double_walk_kernel")
+            row["trace_fallbacks"] = trace_fallbacks() - n_fallbacks
             mb = sum(m.numel() for m in masks.values()) / 2**20
             print(f"[kernel] double_walk B={KERNEL_BATCH} C=8 Lmax={bucket} "
                   f"T={T} Tl={Tl} ({mb:.1f} MiB of masks): bit-equal to "
@@ -597,7 +625,9 @@ def phase_kernel(seed: int):
                   f"events): kernel {row['ms']:.4f} ms, plain "
                   f"{row['plain_ms']:.3f} ms; bound {row['bound_ms']:.4f} ms "
                   f"by {row['bound_by']}, device time at "
-                  f"{row['bound_share']:.3f} of it{cold}")
+                  f"{row['bound_share']:.3f} of it{cold}; device times by "
+                  f"the mean of a trace missing one record: "
+                  f"{row['trace_fallbacks']}")
             rows["double_walk"].append(row)
     return rows
 
@@ -920,12 +950,14 @@ def phase_probe_walk_kernel(seed: int):
     # the grid of a launch of KERNEL_BATCH reads at C = 8: 4 reads a warp,
     # 64-thread blocks
     blocks = KERNEL_BATCH // 4 * 32 // 64
+    n_fallbacks = trace_fallbacks()
     floor = device_ms(lambda: stamped.nimble_empty_launch(
         blocks, 64, torch.cuda.current_stream().cuda_stream), 50,
         "nimble_empty_kernel")
     print(f"[kernel] empty kernel, {blocks} blocks of 64 threads (the grid "
           f"of {KERNEL_BATCH} reads at C=8): device time {floor:.4f} ms, "
-          f"the floor of a launch of that size")
+          f"the floor of a launch of that size (by the mean of a trace "
+          f"missing one record: {trace_fallbacks() - n_fallbacks})")
     rows = []
     for label, packed, t, scalars, s_min in _probe_walk_inputs(seed):
         for full in (False, True):
@@ -948,6 +980,7 @@ def phase_probe_walk_kernel(seed: int):
                     f"probe_walk_filter {label} full={full}: kernel != plain"
                     f" ({bad} rows differ)")
             mode = "full" if full else "compact"
+            n_fallbacks = trace_fallbacks()
             row = {"input": label, "mode": mode, "Lmax": KERNEL_BUCKETS[0],
                    "B": int(got.shape[0]), "max_probe": t.max_probe,
                    "max_abs_err": 0,
@@ -958,6 +991,7 @@ def phase_probe_walk_kernel(seed: int):
             row.update(_bound(*_probe_walk_work(packed, t, KERNEL_BUCKETS[0],
                                                 8, full), row["device_ms"]))
             cold = _cold(row, kernel, "probe_walk_filter_kernel")
+            row["trace_fallbacks"] = trace_fallbacks() - n_fallbacks
             row["empty_launch_ms"] = floor
             row["registers"] = usage.get((KERNEL_BUCKETS[0] + 15) // 16)
             split, row["phase_split"] = "", None
@@ -982,8 +1016,9 @@ def phase_probe_walk_kernel(seed: int):
                   f"{row['plain_kernels_per_call']:g}; bound "
                   f"{row['bound_ms']:.5f} ms by {row['bound_by']} "
                   f"({row['bound_bytes']} bytes, {row['bound_ops']} ops), "
-                  f"device time at {row['bound_share']:.3f} of it{cold}"
-                  f"{split}")
+                  f"device time at {row['bound_share']:.3f} of it{cold}; "
+                  f"device times by the mean of a trace missing one record:"
+                  f" {row['trace_fallbacks']}{split}")
     shutil.rmtree(tmp, ignore_errors=True)
     return {"probe_walk_filter": rows}
 
@@ -1068,6 +1103,7 @@ def phase_gather_kernels(seed: int):
                                      f"max |err| {err}")
             n_bytes = a.numel() * 4 + idx_bytes + got.numel() * 4
             design, smem_kib = _design(gather, name, a, b)
+            n_fallbacks = trace_fallbacks()
             row = {"N": N, "W": W, "M": M, "case": case, "design": design,
                    "max_abs_err": err, "smem_kib": smem_kib,
                    **_timings(lambda: fn(a, b), lambda: plain(a, b), kname),
@@ -1075,6 +1111,7 @@ def phase_gather_kernels(seed: int):
                    "library_device_ms": device_ms(library, 50)}
             row.update(_bound(n_bytes, 0, row["device_ms"]))
             cold = _cold(row, lambda: fn(a, b), kname)
+            row["trace_fallbacks"] = trace_fallbacks() - n_fallbacks
             rows[name].append(row)
             print(f"[kernel] {name}, {case}, table ({N}, {W}), M={M}: "
                   f"design {design}, {smem_kib:.1f} KiB of shared memory a "
@@ -1086,7 +1123,9 @@ def phase_gather_kernels(seed: int):
                   f"{row['plain_ms']:.4f} ms, library "
                   f"{row['library_ms']:.4f} ms; bound {row['bound_ms']:.5f} "
                   f"ms by bytes ({n_bytes} bytes), device time at "
-                  f"{row['bound_share']:.3f} of it{cold}")
+                  f"{row['bound_share']:.3f} of it{cold}; device times by "
+                  f"the mean of a trace missing one record: "
+                  f"{row['trace_fallbacks']}")
     return rows
 
 
@@ -2131,9 +2170,11 @@ def _bench_pass_times(bench) -> dict:
     packed = torch.from_numpy(pack_reads(mat, lens, 92)).cuda()
     launch = engine._device_pass(92, False)
     call = cuda_ms(lambda: launch(packed), 50)
+    n_fallbacks = trace_fallbacks()
     dev = device_ms(lambda: launch(packed), 50)
     n_kernels = kernels_per_call(lambda: launch(packed), 20)
     out = {"pass_call_ms": call, "pass_device_ms": dev,
+           "pass_trace_fallbacks": trace_fallbacks() - n_fallbacks,
            "pass_kernels": n_kernels,
            "pass_call_ns_per_read": call / KERNEL_BATCH * 1e6,
            "pass_device_ns_per_read": dev / KERNEL_BATCH * 1e6}
@@ -2331,7 +2372,7 @@ def main(argv=None) -> int:
                 "device_ms", "plain_device_ms", "library_device_ms",
                 "bound_bytes", "bound_ops", "bound_share",
                 "small_batch_device_ms", "cold_device_ms",
-                "cold_bound_share")},
+                "cold_bound_share", "trace_fallbacks")},
             "shape": shape, **extra,
         })
     print(json.dumps({"kernels": lines}))

@@ -19,6 +19,7 @@ hash (:func:`tables_from_sharded_index`, the per-shard slice of
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import cached_property
 from typing import Optional, Sequence
 
 import numpy as np
@@ -57,6 +58,63 @@ class IndexTables:
     ref_codes_packed: torch.Tensor  # (n_words,) int32 bits of uint32
     row_starts: torch.Tensor       # (n_rows,) int32
     row_lengths: torch.Tensor
+
+    @cached_property
+    def layout(self) -> "TableLayout":
+        """The tables checked, on first use only (they are frozen): one
+        library's, or stacked on a leading library axis; int32, contiguous,
+        consistent shapes, all on ``bkey_fp``'s device, a power-of-two
+        bucket count.  Raises ValueError, and keeps nothing, otherwise."""
+        return _check_layout(self)
+
+
+@dataclass(frozen=True)
+class TableLayout:
+    """A tables object's checked geometry (:attr:`IndexTables.layout`), and
+    the kernels' argument blocks built from it (``ops.probe_walk``), which
+    live and die with the tables."""
+
+    device: torch.device
+    stacked: bool
+    n_libraries: int  # 1 for one library's tables
+    n_buckets: int
+    lanes: int        # W, the lanes of a bucket row
+    blocks: dict = field(default_factory=dict, repr=False, compare=False)
+
+
+def check_tensor(name, x, shape, dtype, device) -> None:
+    """Raises ValueError unless ``x`` is a contiguous ``shape`` tensor of
+    ``dtype`` on ``device``."""
+    if tuple(x.shape) != shape or x.dtype != dtype:
+        raise ValueError(f"{name}: expected {shape} {dtype}, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, bkey_fp on {device}")
+
+
+def _check_layout(t: IndexTables) -> TableLayout:
+    if t.bkey_fp.dim() not in (2, 3):
+        raise ValueError(f"bkey_fp: {tuple(t.bkey_fp.shape)}, want (n_buckets,"
+                         " W) or stacked (L, n_buckets, W)")
+    stacked = t.bkey_fp.dim() == 3
+    lead = (t.bkey_fp.shape[0],) if stacked else ()
+    n_buckets, W = t.bkey_fp.shape[-2:]
+    if n_buckets != t.bucket_mask + 1 or n_buckets & (n_buckets - 1):
+        raise ValueError(f"{n_buckets} buckets: want a power of two, "
+                         f"bucket_mask + 1 = {t.bucket_mask + 1}")
+    extent = {name: lead + (getattr(t, name).shape[-1],) for name in (
+        "postings_row", "ref_codes_packed", "row_starts")}
+    for name in _TABLE_FIELDS:
+        shape = (lead + (n_buckets, W) if name.startswith("b") else
+                 extent[{"postings_off": "postings_row",
+                         "row_lengths": "row_starts"}.get(name, name)])
+        check_tensor(name, getattr(t, name), shape, torch.int32,
+                     t.bkey_fp.device)
+    return TableLayout(device=t.bkey_fp.device, stacked=stacked,
+                       n_libraries=lead[0] if stacked else 1,
+                       n_buckets=n_buckets, lanes=W)
 
 
 def _to_i32(a: np.ndarray) -> np.ndarray:

@@ -23,13 +23,17 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import threading
-import weakref
 from typing import Optional
 
 import torch
 
 from nimble_tpu_torch.ops import _build
-from nimble_tpu_torch.ops.device_tables import FilterScalars, IndexTables
+from nimble_tpu_torch.ops.device_tables import (
+    FilterScalars,
+    IndexTables,
+    TableLayout,
+    check_tensor,
+)
 
 MAX_CANDIDATES = 16  # the results pack the live lanes in 16 bits
 MAX_K = 32           # a key half of k/2 or k - k/2 bases fits 32 bits
@@ -93,84 +97,21 @@ def _check_c_max(c_max: int) -> None:
         raise ValueError(f"c_max={c_max} not in [1, {MAX_CANDIDATES}]")
 
 
-class _Checked:
-    """What one tables object passed (checked on its first call): the
-    device, library count and geometry, and per (bucket, mode) the
-    kernel's argument block with the gates and ``s_min`` it was built
-    from (a call with other gate objects builds and checks it anew)."""
-
-    def __init__(self, t: IndexTables, device: torch.device):
-        self.ref = weakref.ref(t)
-        self.device = device
-        self.stacked = t.bkey_fp.dim() == 3
-        self.L = t.bkey_fp.shape[0] if self.stacked else 1
-        self.blocks: dict = {}
-
-
-_checked: dict = {}  # id(tables) -> _Checked, dropped with the tables
-
-
-def _check_tables(t: IndexTables, device: torch.device) -> _Checked:
-    """Raises ValueError on tables the kernel does not take: one library's
-    or stacked, int32, contiguous, consistent shapes, on ``device`` (the
-    first call's packed rows')."""
-    if t.bkey_fp.dim() not in (2, 3):
-        raise ValueError(f"bkey_fp: {tuple(t.bkey_fp.shape)}, want (n_buckets,"
-                         " W) or stacked (L, n_buckets, W)")
-    stacked = t.bkey_fp.dim() == 3
-    lead = (t.bkey_fp.shape[0],) if stacked else ()
-    n_buckets, W = t.bkey_fp.shape[-2:]
-    if n_buckets != t.bucket_mask + 1 or n_buckets & (n_buckets - 1):
-        raise ValueError(f"{n_buckets} buckets: want a power of two, "
-                         f"bucket_mask + 1 = {t.bucket_mask + 1}")
-    extent = {name: lead + (getattr(t, name).shape[-1],) for name in (
-        "postings_row", "ref_codes_packed", "row_starts")}
-    for name in _TABLES:
-        shape = (lead + (n_buckets, W) if name.startswith("b") else
-                 extent[{"postings_off": "postings_row",
-                         "row_lengths": "row_starts"}.get(name, name)])
-        _check_tensor(name, getattr(t, name), shape, torch.int32, device)
-    return _Checked(t, device)
-
-
-def _check_tensor(name, x, shape, dtype, device) -> None:
-    if tuple(x.shape) != shape or x.dtype != dtype:
-        raise ValueError(f"{name}: expected {shape} {dtype}, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, packed on {device}")
-
-
-def _tables_entry(t: IndexTables, device: torch.device) -> _Checked:
-    """The tables' checks, run on the first call with this tables object
-    (held weakly, keyed on its identity: the frozen dataclass's ``==``
-    compares tensors) and on no later one."""
-    entry = _checked.get(id(t))
-    if entry is None or entry.ref() is not t:
-        entry = _check_tables(t, device)
-        _checked[id(t)] = entry
-        weakref.finalize(t, _checked.pop, id(t), None)
-    elif device != entry.device:
-        raise ValueError(f"packed is on {device}, the tables on "
-                         f"{entry.device}")
-    return entry
-
-
-def _block(entry: _Checked, t: IndexTables, scalars, s_min, bucket: int):
+def _block(layout: TableLayout, t: IndexTables, scalars, s_min,
+           bucket: int):
     """The kernel's argument block for (bucket, mode) with these gates,
-    checked and built on first use.  Raises ValueError on what the kernel
-    does not take."""
+    checked and built on first use and kept in the tables' ``layout``
+    (built anew for other gate objects).  Raises ValueError on what the
+    kernel does not take."""
     full = scalars is None
     key = (bucket, full)
-    cached = entry.blocks.get(key)
+    cached = layout.blocks.get(key)
     if cached is not None and cached[1] is scalars and cached[2] is s_min:
         return cached[0]
     if not 2 <= t.k <= MAX_K or t.k >= bucket:
         raise ValueError(f"k={t.k} must lie in [2, {MAX_K}] and below "
                          f"bucket={bucket}")
-    lead = (entry.L,) if entry.stacked else ()
+    lead = (layout.n_libraries,) if layout.stacked else ()
     if (scalars is None) != (s_min is None):
         raise ValueError("scalars and s_min come together (compact mode) "
                          "or not at all (full mode)")
@@ -182,9 +123,9 @@ def _block(entry: _Checked, t: IndexTables, scalars, s_min, bucket: int):
         if s_min.dim() != len(lead) + 1 or s_min.shape[-1] < 1:
             raise ValueError(f"s_min: {tuple(s_min.shape)}, want "
                              f"{lead + ('n',)}")
-        _check_tensor("s_min", s_min, tuple(s_min.shape), torch.int32,
-                      entry.device)
-        if entry.stacked:
+        check_tensor("s_min", s_min, tuple(s_min.shape), torch.int32,
+                     layout.device)
+        if layout.stacked:
             for name, dtype in (("score_threshold", torch.int32),
                                 ("num_mismatches", torch.int32),
                                 ("discard_multiple", torch.bool),
@@ -193,19 +134,19 @@ def _block(entry: _Checked, t: IndexTables, scalars, s_min, bucket: int):
                 if not isinstance(x, torch.Tensor):
                     raise ValueError(f"scalars.{name}: stacked tables take "
                                      f"(L,) tensors, got {type(x).__name__}")
-                _check_tensor(f"scalars.{name}", x, (entry.L,), dtype,
-                              entry.device)
+                check_tensor(f"scalars.{name}", x, (layout.n_libraries,),
+                             dtype, layout.device)
     block = _ProbeTables()
-    if entry.device.type == "cuda":
-        _fill_block(block, entry, t, scalars, s_min, bucket)
-    entry.blocks[key] = (block, scalars, s_min)
+    if layout.device.type == "cuda":
+        _fill_block(block, layout, t, scalars, s_min, bucket)
+    layout.blocks[key] = (block, scalars, s_min)
     return block
 
 
-def _fill_block(block, entry: _Checked, t: IndexTables, scalars, s_min,
+def _fill_block(block, layout: TableLayout, t: IndexTables, scalars, s_min,
                 bucket: int) -> None:
     """The kernel's own refusals (ValueError), then the block's fields."""
-    n_buckets, W = t.bkey_fp.shape[-2:]
+    n_buckets, W = layout.n_buckets, layout.lanes
     if W % 4 or not 4 <= W <= 32 or t.bkey_fp.data_ptr() % 16:
         raise ValueError(
             f"bkey_fp: the kernel loads a bucket row as 16-byte vectors: "
@@ -217,16 +158,16 @@ def _fill_block(block, entry: _Checked, t: IndexTables, scalars, s_min,
     if big:
         raise ValueError(f"{', '.join(big)}: 2^31 elements or more; the "
                          f"kernel indexes in 32 bits")
-    if entry.L > MAX_LIBRARIES:
-        raise ValueError(f"{entry.L} libraries: the kernel takes at most "
-                         f"{MAX_LIBRARIES}")
+    if layout.n_libraries > MAX_LIBRARIES:
+        raise ValueError(f"{layout.n_libraries} libraries: the kernel takes "
+                         f"at most {MAX_LIBRARIES}")
     for name in _TABLES:
         setattr(block, "ref" if name == "ref_codes_packed" else name,
                 getattr(t, name).data_ptr())
     if s_min is not None:
         block.s_min = s_min.data_ptr()
         block.s_len = s_min.shape[-1]
-        if entry.stacked:
+        if layout.stacked:
             block.threshold = scalars.score_threshold.data_ptr()
             block.mismatches = scalars.num_mismatches.data_ptr()
             block.discard_multiple = scalars.discard_multiple.data_ptr()
@@ -236,7 +177,7 @@ def _fill_block(block, entry: _Checked, t: IndexTables, scalars, s_min,
             block.mismatches0 = int(scalars.num_mismatches)
             block.discard_multiple0 = int(bool(scalars.discard_multiple))
             block.discard_nonzero0 = int(bool(scalars.discard_nonzero))
-    block.L = entry.L
+    block.L = layout.n_libraries
     block.n_buckets = n_buckets
     block.W = W
     block.max_probe = t.max_probe
@@ -278,8 +219,8 @@ def probe_walk(packed, t: IndexTables, *, bucket: int, c_max: int,
     ``(L,)`` gate tensors and an ``(L, bucket + 1)`` ``s_min``, and serve
     every row against every library: ``(L*B, .)``, library major.
 
-    The tables, gates and ``s_min`` are checked on the first call with
-    this tables object (and these gate objects), the packed rows and
+    The tables are checked once per tables object (``t.layout``), the
+    gates and ``s_min`` on their first call with it, the packed rows and
     ``c_max`` on every call; anything the kernel does not take raises
     ValueError.  CUDA tensors launch ``csrc/probe_walk_filter.cu`` (or
     raise); CPU tensors take :func:`probe_walk_plain`.
@@ -288,15 +229,18 @@ def probe_walk(packed, t: IndexTables, *, bucket: int, c_max: int,
     _check_packed(packed, bucket)
     _check_c_max(c_max)
     dev = packed.device
-    entry = _tables_entry(t, dev)
-    block = _block(entry, t, scalars, s_min, bucket)
+    layout = t.layout
+    if dev != layout.device:
+        raise ValueError(f"packed is on {dev}, the tables on "
+                         f"{layout.device}")
+    block = _block(layout, t, scalars, s_min, bucket)
     if dev.type == "cpu":
         return probe_walk_plain(packed, t, bucket=bucket, c_max=c_max,
                                 scalars=scalars, s_min=s_min)
     if dev.type != "cuda":
         raise ValueError(f"probe_walk: unsupported device {dev}")
     B0 = packed.shape[0]
-    B = B0 * entry.L
+    B = B0 * layout.n_libraries
     width = 3 if scalars is None else 2
     if B * width >= MAX_INDEX or packed.numel() >= MAX_INDEX:
         raise ValueError(f"{B0} packed rows: the results or the rows reach "

@@ -130,9 +130,11 @@ def device_ms(fn, iters: int, kernel: str = "") -> float:
     # Traces on an H100 have come back missing a kernel's records (a
     # quarter of them, or, with torch 2.11, one record in most traces),
     # for no cause found yet; such a trace is retaken, at most four times,
-    # and said so.  When every trace misses one record, the call is timed
-    # by the mean of the records the last trace holds (its launches a call
-    # times the mean per launch)
+    # and said so.  When every trace misses exactly one record, the call
+    # is timed by the mean of the records the last trace holds (its
+    # launches a call times the mean per launch), said so and counted in
+    # ``device_ms.fallbacks``; a trace with a record too many or missing
+    # more raises
     for attempt in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -144,8 +146,13 @@ def device_ms(fn, iters: int, kernel: str = "") -> float:
         print(f"[profiler] trace {attempt + 1} of {kernel or 'all kernels'!r}"
               f" holds {count} kernel records for {iters} calls; retaken")
     per_call = max(1, round(count / iters))
-    if count and abs(count - per_call * iters) <= 1:
+    if count == per_call * iters - 1:
         print(f"[profiler] {kernel or 'all kernels'!r}: the mean of {count} "
               f"records, {per_call} a call")
+        device_ms.fallbacks += 1
         return total_us / count * per_call / 1e3
-    raise AssertionError(f"profiler traces of {kernel!r} miss launches")
+    raise AssertionError(f"profiler traces of {kernel!r} miss launches or "
+                         f"hold {count} records for {iters} calls")
+
+
+device_ms.fallbacks = 0

@@ -133,31 +133,40 @@ def _sample_reads(rng, codes: np.ndarray, rows: np.ndarray,
     return mat
 
 
-def allele_family(*, n_alleles=8, feat_len=1500, divergence=0.01,
-                  read_len=90, n_reads=8192, seed=0):
+# the allele family's shape (KIR / MHC-like): alleles of one feature, its
+# length, each later allele's share of substituted positions, read length
+ALLELES = 8
+ALLELE_LEN = 1500
+ALLELE_DIVERGENCE = 0.01
+ALLELE_READ_LEN = 90
+
+
+def allele_family(*, n_reads=8192, seed=0):
     """An allele family from ``seed``, the shape of a KIR or MHC library:
-    ``n_alleles`` variants of one random feature, each allele after the
-    first differing from it at ``round(divergence * feat_len)`` positions
-    (a substitution each), and reads sampled from the doubled rows with
+    ALLELES variants of one random feature of ALLELE_LEN bases, each allele
+    after the first differing from it at ``round(ALLELE_DIVERGENCE *
+    ALLELE_LEN)`` positions (a substitution each), and ``n_reads`` reads of
+    ALLELE_READ_LEN bases sampled from the doubled rows with
     :func:`generate`'s error model.  Most reads hold several live
     candidates (the alleles sharing their k-mers) that part where the
-    alleles differ.  Returns (features, doubled rows, (n_reads, read_len)
-    int8 codes)."""
+    alleles differ.  Returns (features, doubled rows, (n_reads,
+    ALLELE_READ_LEN) int8 codes)."""
     rng = np.random.default_rng(seed)
-    first = encode_bases(_features(rng, 1, feat_len)[0])
-    n_sites = int(round(divergence * feat_len))
+    first = encode_bases(_features(rng, 1, ALLELE_LEN)[0])
+    n_sites = int(round(ALLELE_DIVERGENCE * ALLELE_LEN))
     alleles = [first]
-    for _ in range(n_alleles - 1):
+    for _ in range(ALLELES - 1):
         codes = first.copy()
-        sites = rng.choice(feat_len, n_sites, replace=False)
+        sites = rng.choice(ALLELE_LEN, n_sites, replace=False)
         codes[sites] = (codes[sites] + rng.integers(1, 4, n_sites)) % 4
         alleles.append(codes)
     feats = [_BASES[a.astype(np.int64)].tobytes().decode() for a in alleles]
     doubled = [x for s in feats for x in (s, revcomp(s))]
     codes = np.stack([encode_bases(s) for s in doubled])
     rows = rng.integers(0, len(doubled), n_reads)
-    starts = rng.integers(0, feat_len - read_len + 1, n_reads)
-    return feats, doubled, _sample_reads(rng, codes, rows, starts, read_len)
+    starts = rng.integers(0, ALLELE_LEN - ALLELE_READ_LEN + 1, n_reads)
+    return feats, doubled, _sample_reads(rng, codes, rows, starts,
+                                         ALLELE_READ_LEN)
 
 
 def _write_library(path: str, feats: List[str]) -> str:

@@ -7,10 +7,11 @@ one launch) for CUDA tensors and takes its plain twin, the torch chain of
 
 - the wrapper refuses, with ValueError, every argument the kernel does not
   take, in both modes and for single and stacked tables;
-- the tables, gates and ``s_min`` are checked once per tables object
-  (and gate objects), the packed rows and ``c_max`` on every call: a bad
-  table is refused on its first call, a bad ``packed`` after good calls
-  still is, and a new tables object is checked anew;
+- the tables are checked once per tables object (``IndexTables.layout``,
+  kept on the object), the gates and ``s_min`` on their first call with
+  it, the packed rows and ``c_max`` on every call: a bad table is refused
+  on its first call, a bad ``packed`` after good calls still is, and a new
+  tables object is checked anew;
 - in front of a stand-in kernel library, tensors that report a CUDA device
   reach the kernel entry as one argument block (``_ProbeTables``, whose
   layout equals ``csrc/probe_walk_tables.h``'s as the host's C++ compiler
@@ -36,9 +37,11 @@ equality throughout.
 
 import ctypes
 import dataclasses
+import gc
 import shutil
 import subprocess
 import types
+import weakref
 
 import numpy as np
 import pytest
@@ -47,7 +50,7 @@ import torch
 from nimble_tpu_torch.config import AlignFilterConfig
 from nimble_tpu_torch.index.build import build_index
 from nimble_tpu_torch.models.aligner import pack_reads
-from nimble_tpu_torch.ops import _build
+from nimble_tpu_torch.ops import _build, device_tables
 from nimble_tpu_torch.ops import probe_walk as pw
 from nimble_tpu_torch.ops.device_index import (
     EMPTY_SLOT,
@@ -580,13 +583,13 @@ def test_kernel_refusals_raise_before_a_launch(stand_in, monkeypatch, case,
 
 def test_tables_are_checked_once_per_tables_object(monkeypatch):
     checked = []
-    real = pw._check_tables
+    real = device_tables._check_layout
 
-    def counting(t, device):
+    def counting(t):
         checked.append(t)
-        return real(t, device)
+        return real(t)
 
-    monkeypatch.setattr(pw, "_check_tables", counting)
+    monkeypatch.setattr(device_tables, "_check_layout", counting)
     packed, t, scalars, s_min, bucket, c_max = args = _single(n=12)
     _call(args, False)
     _call(args, True)
@@ -617,17 +620,19 @@ def test_tables_are_checked_once_per_tables_object(monkeypatch):
         _call((torch.empty_like(packed, device="meta"),) + args[1:], False)
 
 
-def test_checked_tables_are_held_weakly():
+def test_the_checked_layout_lives_and_dies_with_its_tables():
+    """The checks and argument blocks are kept on the tables object itself
+    (``IndexTables.layout``): nothing else holds the tables."""
     args = _single(n=8)
     t = args[1]
     _call(args, False)
-    key = id(t)
-    assert pw._checked[key].ref() is t
+    _call(args, True)
+    assert t.layout is t.layout and len(t.layout.blocks) == 2
+    assert "layout" not in {f.name for f in dataclasses.fields(t)}
+    gone = weakref.ref(t)
     del args, t
-    import gc
-
     gc.collect()
-    assert key not in pw._checked
+    assert gone() is None
 
 
 def test_the_argument_block_matches_the_c_header(tmp_path):
