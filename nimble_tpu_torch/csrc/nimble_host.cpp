@@ -8,8 +8,8 @@
 // (rust-debruijn's packed DnaStrings, htslib, jemalloc); here the hot host
 // paths are C++ behind a ctypes boundary with pure-Python fallbacks:
 //
-//   * encode_bases      — byte -> 2-bit code LUT translation (FASTQ/BAM ingest)
-//   * fastq_scan        — record-boundary scan of a FASTQ text buffer
+//   * fastq_scan2       — record-boundary scan of a FASTQ text buffer
+//   * fill_matrix_encode — FASTQ sequence spans to a padded base-code matrix
 //   * build_bucket_table — bucketed insertion loop for the k-mer table
 //                         (must match ops/device_index.py's fmix32 hashing)
 //   * extract_kmer_keys — rolling 60-bit k-mer keys of a code array
@@ -35,6 +35,10 @@
 #include <vector>
 
 #include <zlib.h>
+
+#if defined(__SSE2__)
+#include <emmintrin.h>
+#endif
 
 namespace {
 // open-addressing exact-key set: keys live in an append-only arena,
@@ -174,71 +178,141 @@ const CodeLuts& code_luts() {
 extern "C" {
 
 // ---------------------------------------------------------------------------
-// base encoding: A/a=0 C/c=1 G/g=2 T/t=3, everything else 0 (DnaString rule)
+// FASTQ parse: the record scan finds (seq_offset, seq_len) per record in a
+// text buffer (a line ends at '\n' and loses its trailing '\r' and spaces;
+// blank lines between records are skipped), and each record's bases are
+// encoded into a zero-padded row of an int8 matrix.
 // ---------------------------------------------------------------------------
-void nimble_encode_bases(const uint8_t* in, int64_t n, int8_t* out) {
-    const int8_t* lut = code_luts().code;
-    for (int64_t i = 0; i < n; ++i) out[i] = lut[in[i]];
+
+// Sixteen bytes at once to base codes, A/a=0 C/c=1 G/g=2 T/t=3 and every
+// other byte 0 (the code_luts() rule): ((b >> 1) ^ (b >> 2)) & 3 is the
+// code of each of the eight letters, and a byte that is none of c, g, t in
+// either case is masked to 0, which is also A's code.
+typedef uint8_t u8x16 __attribute__((vector_size(16)));
+
+static inline u8x16 load16(const void* p) {
+    u8x16 v;
+    std::memcpy(&v, p, 16);
+    return v;
 }
 
-// ---------------------------------------------------------------------------
-// FASTQ record scan: finds (seq_offset, seq_len) per record in a text buffer.
-// Returns the number of records, or -1 on a malformed record (missing '@'
-// header / '+' separator / truncated quality line) — the caller raises the
-// reference-compatible "Unable to read sequence" error.
-// ---------------------------------------------------------------------------
-static inline int64_t next_line(const uint8_t* buf, int64_t n, int64_t pos,
-                                int64_t* start, int64_t* len) {
-    if (pos >= n) return -1;
-    int64_t s = pos;
-    while (pos < n && buf[pos] != '\n') ++pos;
-    int64_t e = pos;
-    while (e > s && (buf[e - 1] == '\r' || buf[e - 1] == ' ')) --e;
-    *start = s;
-    *len = e - s;
-    return pos < n ? pos + 1 : n;
+static inline void store16(void* p, u8x16 v) { std::memcpy(p, &v, 16); }
+
+static inline u8x16 encode16(u8x16 b) {
+    u8x16 lower = b | 0x20;
+    u8x16 code = ((b >> 1) ^ (b >> 2)) & 3;
+    u8x16 keep = (u8x16)((lower == 'c') | (lower == 'g') | (lower == 't'));
+    return code & keep;
 }
 
-int64_t nimble_fastq_scan(const uint8_t* buf, int64_t n,
-                          int64_t* seq_offsets, int64_t* seq_lens,
-                          int64_t max_records) {
-    int64_t pos = 0, count = 0;
-    while (pos < n && count < max_records) {
-        int64_t hs, hl;
-        pos = next_line(buf, n, pos, &hs, &hl);
-        if (pos < 0) break;
-        if (hl == 0) continue;  // blank line tolerance
-        if (buf[hs] != '@') return -1;
-        int64_t ss, sl;
-        pos = next_line(buf, n, pos, &ss, &sl);
-        if (pos < 0) return -1;
-        int64_t ps, plen;
-        pos = next_line(buf, n, pos, &ps, &plen);
-        if (pos < 0 || plen == 0 || buf[ps] != '+') return -1;
-        int64_t qs, ql;
-        pos = next_line(buf, n, pos, &qs, &ql);
-        if (pos < 0) return -1;
-        seq_offsets[count] = ss;
-        seq_lens[count] = sl;
-        ++count;
+// first_k + 16 - k: k bytes 0xFF, then zeros
+static const uint8_t first_k[32] = {
+    0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF,
+    0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF, 0xFF};
+
+// The W-byte row at dst gets the codes of src[0, len) and zeros after
+// them.  With wide, sixteen bytes a step: a step may read up to 15 bytes
+// past src + len (masked off) and store up to 15 bytes past the row (into
+// rows the caller fills after it); without, a byte at a time.
+static inline void encode_row(const uint8_t* src, int64_t len, int8_t* dst,
+                              int64_t W, bool wide) {
+    if (!wide) {
+        const int8_t* lut = code_luts().code;
+        for (int64_t j = 0; j < len; ++j) dst[j] = lut[src[j]];
+        std::memset(dst + len, 0, (size_t)(W - len));
+        return;
     }
-    return count;
+    int64_t j = 0;
+    for (; j + 16 <= len; j += 16)
+        store16(dst + j, encode16(load16(src + j)));
+    if (j < len) {
+        u8x16 live = load16(first_k + 16 - (len - j));
+        store16(dst + j, encode16(load16(src + j)) & live);
+        j += 16;
+    }
+    const u8x16 zero = {};
+    for (; j < W; j += 16) store16(dst + j, zero);
 }
 
-// Streaming variant: stops at the last COMPLETE record and reports the
-// bytes consumed, so callers can scan fixed-size blocks and carry the
-// partial tail.  A record is complete when its quality line is
-// newline-terminated (or is_final).  Malformed records (non-'@' header,
-// non-'+' separator on a complete line, or a truncated final record)
-// return -1 — the reference's "Unable to read sequence".
+static inline int64_t round16(int64_t x) { return (x + 15) & ~(int64_t)15; }
+
+// The newlines of a buffer, read 64 bytes at a time into a bit mask (one
+// bit a byte of the block at base).  The scan asks for lines in order, so
+// every block is read once, and a line end is a count of trailing zeros.
+struct Newlines {
+    const uint8_t* buf;
+    int64_t n;
+    int64_t base = 0;
+    uint64_t bits;
+
+    Newlines(const uint8_t* b, int64_t len) : buf(b), n(len) { bits = block(0); }
+
+    uint64_t block(int64_t at) const {
+        const uint8_t* p = buf + at;
+        uint64_t m = 0;
+#if defined(__SSE2__)
+        if (n - at >= 64) {
+            const __m128i nl = _mm_set1_epi8('\n');
+            for (int k = 0; k < 4; ++k) {
+                __m128i v = _mm_loadu_si128((const __m128i*)(p + 16 * k));
+                m |= (uint64_t)(uint32_t)_mm_movemask_epi8(
+                         _mm_cmpeq_epi8(v, nl)) << (16 * k);
+            }
+            return m;
+        }
+#endif
+        for (int64_t k = 0, e = std::min<int64_t>(64, n - at); k < e; ++k)
+            m |= (uint64_t)(p[k] == '\n') << k;
+        return m;
+    }
+
+    // The first '\n' at or after pos, or n; pos never goes back.
+    int64_t find(int64_t pos) {
+        if (pos >= base + 64) {
+            base = pos & ~(int64_t)63;
+            bits = block(base);
+        }
+        uint64_t m = bits & (~0ULL << (pos - base));
+        while (!m) {
+            base += 64;
+            if (base >= n) return n;
+            bits = m = block(base);
+        }
+        return base + __builtin_ctzll(m);
+    }
+};
+
+static inline int64_t next_line(Newlines& lines, int64_t pos,
+                                int64_t* start, int64_t* len) {
+    const uint8_t* buf = lines.buf;
+    const int64_t n = lines.n;
+    if (pos >= n) return -1;
+    int64_t end = lines.find(pos);
+    int64_t e = end;
+    while (e > pos && (buf[e - 1] == '\r' || buf[e - 1] == ' ')) --e;
+    *start = pos;
+    *len = e - pos;
+    return end < n ? end + 1 : n;
+}
+
+// Scans up to max_records COMPLETE records and reports the bytes consumed,
+// so a streaming caller carries the partial tail into its next read.  A
+// record is complete when its quality line is newline-terminated (or
+// is_final: the buffer ends the file; with is_final the whole buffer is one
+// file, as read_fastq_matrix scans it).  Returns the record count, or -1 on
+// a malformed record (non-'@' header, non-'+' separator on a complete line,
+// or a truncated final record): the reference's "Unable to read sequence".
+// stats gets [bytes consumed, longest sequence].
 int64_t nimble_fastq_scan2(const uint8_t* buf, int64_t n, int32_t is_final,
                            int64_t* seq_offsets, int64_t* seq_lens,
-                           int64_t max_records, int64_t* consumed) {
-    int64_t pos = 0, count = 0;
+                           int64_t max_records, int64_t* stats) {
+    int64_t pos = 0, count = 0, lmax = 0;
+    int64_t* consumed = stats;
     *consumed = 0;
+    Newlines lines(buf, n);
     while (pos < n && count < max_records) {
         int64_t hs, hl;
-        int64_t p = next_line(buf, n, pos, &hs, &hl);
+        int64_t p = next_line(lines, pos, &hs, &hl);
         if (p < 0) break;
         bool h_term = p < n || buf[n - 1] == '\n';
         if (hl == 0) {
@@ -249,10 +323,10 @@ int64_t nimble_fastq_scan2(const uint8_t* buf, int64_t n, int32_t is_final,
         }
         if (buf[hs] != '@') return -1;  // record starts are exact: malformed
         int64_t ss, sl;
-        int64_t p2 = next_line(buf, n, p, &ss, &sl);
+        int64_t p2 = next_line(lines, p, &ss, &sl);
         if (p2 < 0) { if (is_final) return -1; break; }
         int64_t ps, plen;
-        int64_t p3 = next_line(buf, n, p2, &ps, &plen);
+        int64_t p3 = next_line(lines, p2, &ps, &plen);
         if (p3 < 0) { if (is_final) return -1; break; }
         bool p_term = p3 < n || buf[n - 1] == '\n';
         if (p_term || is_final) {
@@ -261,61 +335,42 @@ int64_t nimble_fastq_scan2(const uint8_t* buf, int64_t n, int32_t is_final,
             break;  // separator line may be truncated: carry
         }
         int64_t qs, ql;
-        int64_t p4 = next_line(buf, n, p3, &qs, &ql);
+        int64_t p4 = next_line(lines, p3, &qs, &ql);
         if (p4 < 0) { if (is_final) return -1; break; }
         bool q_term = p4 < n || buf[n - 1] == '\n';
         if (!q_term && !is_final) break;  // quality may be truncated: carry
         seq_offsets[count] = ss;
         seq_lens[count] = sl;
+        lmax = std::max(lmax, sl);
         ++count;
         pos = p4;
         *consumed = pos;
     }
+    stats[1] = lmax;
     return count;
 }
 
-// Padded (n, W) matrix fill from scanned record spans: row i copies
-// codes[offsets[i] .. +lens[i]] (zero padding preset by the caller).
-void nimble_fill_matrix(const int8_t* codes, const int64_t* offsets,
-                        const int64_t* lens, int64_t n, int64_t W,
-                        int8_t* out) {
+// Row i of the (n, W) int8 matrix at out gets the codes of the bases
+// raw[offsets[i] .. + lens[i]] and zeros up to W, so out needs no zeroing
+// (encode_row; a row whose 16-byte steps would leave raw or the n rows is
+// encoded a byte at a time).  Every span is checked before any byte is
+// written: returns -1, or the first row whose length is negative or over W
+// or whose span leaves raw[0, raw_len).
+int64_t nimble_fill_matrix_encode(const uint8_t* raw, int64_t raw_len,
+                                  const int64_t* offsets, const int64_t* lens,
+                                  int64_t n, int64_t W, int8_t* out) {
     for (int64_t i = 0; i < n; ++i) {
-        std::memcpy(out + i * W, codes + offsets[i], (size_t)lens[i]);
+        if (lens[i] < 0 || lens[i] > W || offsets[i] < 0 ||
+            offsets[i] > raw_len - lens[i])
+            return i;
     }
-}
-
-// Fused encode + fill: rows are copied straight from the RAW FASTQ text
-// with the base LUT applied per byte (A/a=0 C/c=1 G/g=2 T/t=3, unknown=0
-// — exactly nimble_encode_bases / utils.dna.encode_bases).  Replaces the
-// whole-block nimble_encode_bases pass, which encoded header/plus/quality
-// bytes (~4x the sequence volume) only to have fill_matrix copy the
-// sequence spans out.  Threaded over row ranges: pure LUT-memcpy work.
-void nimble_fill_matrix_encode(const uint8_t* raw, const int64_t* offsets,
-                               const int64_t* lens, int64_t n, int64_t W,
-                               int8_t* out, int64_t n_threads) {
-    const int8_t* lut = code_luts().code;
-    auto fill_range = [&](int64_t lo, int64_t hi) {
-        for (int64_t i = lo; i < hi; ++i) {
-            const uint8_t* src = raw + offsets[i];
-            int8_t* dst = out + i * W;
-            int64_t len = lens[i];
-            for (int64_t j = 0; j < len; ++j) dst[j] = lut[src[j]];
-        }
-    };
-    int64_t nt = std::min<int64_t>(
-        n_threads, std::max<int64_t>(1, (int64_t)std::thread::hardware_concurrency()));
-    if (nt <= 1 || n < 4096) {
-        fill_range(0, n);
-        return;
+    const int64_t w16 = round16(W);
+    for (int64_t i = 0; i < n; ++i) {
+        bool wide = i * W + w16 <= n * W &&
+                    offsets[i] + round16(lens[i]) <= raw_len;
+        encode_row(raw + offsets[i], lens[i], out + i * W, W, wide);
     }
-    std::vector<std::thread> workers;
-    int64_t per = (n + nt - 1) / nt;
-    for (int64_t t = 0; t < nt; ++t) {
-        int64_t lo = t * per, hi = std::min(n, lo + per);
-        if (lo >= hi) break;
-        workers.emplace_back(fill_range, lo, hi);
-    }
-    for (auto& w : workers) w.join();
+    return -1;
 }
 
 // ---------------------------------------------------------------------------

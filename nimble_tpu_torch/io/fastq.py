@@ -9,6 +9,7 @@ iterator (`src/parse/fastq.rs:35-41`).
 
 from __future__ import annotations
 
+import ctypes
 import gzip
 import io
 from typing import Iterator, List
@@ -16,7 +17,7 @@ from typing import Iterator, List
 import numpy as np
 
 from nimble_tpu_torch.utils.dna import encode_bases
-from nimble_tpu_torch.utils.metrics import span
+from nimble_tpu_torch.utils.metrics import count, span
 
 
 def _open_maybe_gzip(path: str):
@@ -66,13 +67,25 @@ def read_fastq_codes(path: str) -> List[np.ndarray]:
 
 
 def _matrix_from_scan(buf, offsets, lens):
-    """Padded (N, Lmax) fill from scanned record spans (C++ memcpy rows)."""
+    """Padded (N, Lmax) base-code matrix of the scanned record spans of
+    ``buf``, encoded and zero-padded by the native fill."""
     from nimble_tpu_torch import native
 
-    codes = native.encode_bases_bulk(buf)
-    lmax = int(lens.max()) if len(lens) else 1
-    mat = native.fill_matrix(codes, offsets, lens, lmax)
+    lmax = int(lens.max()) if len(lens) else 0
+    mat = np.empty((len(lens), max(lmax, 1)), dtype=np.int8)
+    native.fill_matrix_encode(buf, offsets, lens, lmax, mat)
     return mat, lens.astype(np.int32)
+
+
+# bytes a record is taken to hold until the first chunk is scanned; after
+# that, the bytes a record of the last chunk
+FIRST_BYTES_PER_RECORD = 256
+
+
+def _chunk_bytes(chunk_reads: int, per_record: float) -> int:
+    """Bytes read ahead for a chunk: its records at ``per_record`` bytes
+    each, and an eighth more for records longer than that."""
+    return int(chunk_reads * per_record * 9 / 8) + 64
 
 
 def iter_fastq_matrix_chunks(path: str, chunk_reads: int):
@@ -84,9 +97,12 @@ def iter_fastq_matrix_chunks(path: str, chunk_reads: int):
     record counts regardless of record byte sizes.
 
     Streaming form of :func:`read_fastq_matrix` for inputs too large to hold
-    as one matrix.  Native fast path: fixed-size byte blocks scanned by the
-    C++ record scanner (complete records committed, partial tail carried)
-    and filled with memcpy rows — no per-record Python work.
+    as one matrix.  Native path: the iterator owns one byte buffer, sized
+    for a chunk from the bytes a record seen so far and grown only when a
+    chunk's records do not fit.  A chunk is one ``readinto`` after the
+    carried tail, one C scan for its records and one C fill that encodes
+    their bases into the zero-padded rows of the chunk's matrix, as wide as
+    its longest read.  The C calls run without the GIL.
     """
     from nimble_tpu_torch import native
 
@@ -103,79 +119,58 @@ def iter_fastq_matrix_chunks(path: str, chunk_reads: int):
             yield pack_matrix(batch)
         return
 
-    # pending scanned-but-unemitted records: (raw_block, offsets, lens)
-    # segments — rows encode during the matrix fill (fill_matrix_encode),
-    # so the block's non-sequence bytes (~4x the sequence volume: headers,
-    # plus lines, qualities) are never LUT-encoded at all
-    segments: list = []
-    pend = 0
-
-    def emit(n: int):
-        nonlocal pend
-        take = []
-        need = n
-        while need:
-            raw, offs, ls = segments[0]
-            if len(offs) <= need:
-                take.append(segments.pop(0))
-                need -= len(offs)
-            else:
-                take.append((raw, offs[:need], ls[:need]))
-                segments[0] = (raw, offs[need:], ls[need:])
-                need = 0
-        pend -= n
-        all_lens = np.concatenate([t[2] for t in take])
-        lmax = int(all_lens.max()) if n else 1
-        mat = np.zeros((n, max(lmax, 1)), dtype=np.int8)
-        row = 0
-        for raw, offs, ls in take:
-            if not native.fill_matrix_encode(raw, offs, ls, lmax, out=mat,
-                                             row0=row):
-                native.fill_matrix(native.encode_bases_bulk(raw), offs, ls,
-                                   lmax, out=mat, row0=row)
-            row += len(offs)
-        return mat, all_lens.astype(np.int32)
-
-    # each block's read and scan, and each chunk's fill, is a span
+    offsets = np.empty(chunk_reads, dtype=np.int64)
+    lens = np.empty(chunk_reads, dtype=np.int64)
+    per_record = float(FIRST_BYTES_PER_RECORD)
+    buf = np.empty(_chunk_bytes(chunk_reads, per_record), dtype=np.uint8)
+    have = 0       # bytes of buf read and not yet handed out
+    consumed = 0   # bytes at buf's front the last chunk took
+    eof = False
+    # each read and scan, and each chunk's fill, is a span
     # (``fastq.parse.read``, ``.scan``, ``.fill``)
     with _open_maybe_gzip(path) as f:
-        tail = b""
-        eof = False
-        est = 256.0  # bytes/record estimate, refined from the first block
         while True:
-            while pend < chunk_reads and not (eof and not tail):
-                if not eof:
-                    want = max(
-                        int((chunk_reads - pend) * est) - len(tail), 1 << 16
-                    )
-                    with span("fastq.parse.read"):
-                        data = f.read(want)
-                        if len(data) < want:
-                            eof = True
-                        buf = tail + data if tail else data
-                else:
-                    buf = tail
-                if not buf:
-                    break
+            want = min(len(buf), _chunk_bytes(chunk_reads, per_record))
+            while True:
+                with span("fastq.parse.read"):
+                    if consumed:
+                        have -= consumed
+                        ctypes.memmove(buf.ctypes.data,
+                                       buf.ctypes.data + consumed, have)
+                        consumed = 0
+                    view = memoryview(buf)
+                    while not eof and have < want:
+                        got = f.readinto(view[have:want])
+                        eof = not got
+                        have += got
                 with span("fastq.parse.scan"):
-                    offsets, lens, consumed = native.fastq_scan2(
-                        buf, eof, len(buf) // 5 + 1
-                    )
-                tail = buf[consumed:]
-                if len(offsets) == 0:
-                    if eof and not tail:
-                        break  # only blanks (scan2 raised if malformed)
-                    est *= 2  # record larger than the block: grow and retry
+                    n, taken, lmax = native.fastq_scan2(
+                        view[:have], eof, offsets, lens)
+                if n == chunk_reads or eof:
+                    break
+                # the chunk's records run past the bytes read: read on to
+                # the buffer's end, then into a larger buffer
+                if want < len(buf):
+                    want = len(buf)
                     continue
-                est = max(consumed / len(offsets), 16.0)
-                segments.append((buf, offsets, lens))
-                pend += len(offsets)
-            if pend == 0:
-                return
-            n = min(pend, chunk_reads)
+                size = 2 * len(buf)
+                if n:
+                    size = max(size, _chunk_bytes(chunk_reads, taken / n))
+                grown = np.empty(size, dtype=np.uint8)
+                grown[:have] = buf[:have]
+                buf, want = grown, size
+                count("fastq.parse.buffer_grows", 1)
+            count("fastq.bytes_in", taken)
+            if n == 0:
+                return  # the end of the file (the scan raised if malformed)
             with span("fastq.parse.fill", items=n):
-                out = emit(n)
-            yield out
+                mat = np.empty((n, max(lmax, 1)), dtype=np.int8)
+                native.fill_matrix_encode(view[:have], offsets[:n],
+                                          lens[:n], lmax, mat)
+                chunk = mat, lens[:n].astype(np.int32)
+            consumed = taken
+            per_record = max(taken / n, 16.0)
+            yield chunk
 
 
 def is_gzip(path: str) -> bool:

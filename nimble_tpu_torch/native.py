@@ -64,24 +64,16 @@ def _load():
             if not so.exists():
                 _build(so)
             lib = ctypes.CDLL(str(so))
-            lib.nimble_encode_bases.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-            lib.nimble_fastq_scan.restype = ctypes.c_int64
-            lib.nimble_fastq_scan.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
             lib.nimble_fastq_scan2.restype = ctypes.c_int64
             lib.nimble_fastq_scan2.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                 ctypes.c_void_p]
-            lib.nimble_fill_matrix.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+            lib.nimble_fill_matrix_encode.restype = ctypes.c_int64
             lib.nimble_fill_matrix_encode.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-                ctypes.c_int64]
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p]
             lib.nimble_extract_kmer_keys.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_void_p]
             lib.nimble_build_bucket_table.restype = ctypes.c_int32
@@ -188,127 +180,89 @@ def available() -> bool:
     return _load() is not None
 
 
-def encode_bases_bulk(data: bytes) -> np.ndarray:
-    """Byte string -> int8 codes; native LUT or NumPy fallback."""
-    lib = _load()
-    raw = np.frombuffer(data, dtype=np.uint8)
-    if lib is None:
-        from nimble_tpu_torch.utils.dna import encode_bases
-
-        return encode_bases(data)
-    out = np.empty(len(raw), dtype=np.int8)
-    lib.nimble_encode_bases(
-        raw.ctypes.data, len(raw), out.ctypes.data
-    )
-    return out
-
-
-def fastq_scan(buf: bytes, max_records: int) -> tuple[np.ndarray, np.ndarray] | None:
-    """(seq_offsets, seq_lens) of FASTQ records in buf; None if native absent.
+def fastq_scan(buf, max_records: int) -> tuple[np.ndarray, np.ndarray] | None:
+    """(seq_offsets, seq_lens) of the FASTQ records of a whole file held in
+    ``buf``; None if native absent.
 
     Raises ValueError("Unable to read sequence") on malformed records.
     """
-    lib = _load()
-    if lib is None:
+    if _load() is None:
         return None
-    arr = np.frombuffer(buf, dtype=np.uint8)
     offsets = np.empty(max_records, dtype=np.int64)
     lens = np.empty(max_records, dtype=np.int64)
-    n = lib.nimble_fastq_scan(
-        arr.ctypes.data, len(arr), offsets.ctypes.data, lens.ctypes.data,
-        max_records,
-    )
-    if n < 0:
-        raise ValueError("Unable to read sequence")
+    n = fastq_scan2(buf, True, offsets, lens)[0]
     return offsets[:n], lens[:n]
 
 
-def fill_matrix(codes: np.ndarray, offsets: np.ndarray, lens: np.ndarray,
-                W: int, out: "np.ndarray | None" = None,
-                row0: int = 0) -> "np.ndarray | None":
-    """Padded (n, W) int8 matrix from record spans (memcpy rows); None when
-    native is unavailable.  With ``out``, fills rows [row0, row0+n) of the
-    given zeroed matrix instead of allocating."""
+def fastq_scan2(buf, is_final: bool, offsets: np.ndarray, lens: np.ndarray
+                ) -> tuple[int, int, int] | None:
+    """Streaming FASTQ scan of ``buf`` (bytes or a uint8 array) into the
+    caller's int64 arrays ``offsets`` and ``lens``: at most ``len(offsets)``
+    COMPLETE records.  Returns (records, consumed bytes, longest sequence);
+    the caller carries ``buf[consumed:]`` into its next read.  None if
+    native absent; raises the reference's ValueError on malformed input."""
     lib = _load()
     if lib is None:
         return None
-    n = len(offsets)
-    if out is None:
-        out = np.zeros((n, max(W, 1)), dtype=np.int8)
-        row0 = 0
-    dst = out[row0 : row0 + n]
-    # bind converted arrays to locals: an inline `.ctypes.data` temporary
-    # would be freed before the C call runs whenever a dtype/contiguity
-    # conversion makes a copy
-    codes_c = np.ascontiguousarray(codes, dtype=np.int8)
-    offsets_c = np.ascontiguousarray(offsets, dtype=np.int64)
-    lens_c = np.ascontiguousarray(lens, dtype=np.int64)
-    lib.nimble_fill_matrix(
-        codes_c.ctypes.data, offsets_c.ctypes.data, lens_c.ctypes.data,
-        n, out.shape[1], dst.ctypes.data,
-    )
-    return out
-
-
-def fill_matrix_encode(raw: bytes, offsets: np.ndarray, lens: np.ndarray,
-                       W: int, out: np.ndarray, row0: int = 0,
-                       n_threads: int = 3) -> bool:
-    """Fill rows [row0, row0+n) of a zeroed (N, W) int8 matrix straight
-    from RAW FASTQ text spans, applying the base LUT per byte (identical
-    output to encode_bases_bulk + fill_matrix, without encoding the ~4x
-    non-sequence block bytes).  Returns False when native is unavailable.
-    Raises ValueError when a span is longer than a row of ``out``, the rows
-    run past ``out``, or a span runs past ``raw``: the C++ loop checks
-    none of these.
-    """
-    n = len(offsets)
-    if n:
-        lens_a = np.asarray(lens, dtype=np.int64)
-        if int(lens_a.max()) > out.shape[1]:
-            raise ValueError(f"fill_matrix_encode: a length of "
-                             f"{int(lens_a.max())} exceeds the row width "
-                             f"{out.shape[1]}")
-        if row0 + n > out.shape[0]:
-            raise ValueError(f"fill_matrix_encode: rows {row0}..{row0 + n} "
-                             f"run past the {out.shape[0]} rows of out")
-        end = int((np.asarray(offsets, dtype=np.int64) + lens_a).max())
-        if end > len(raw):
-            raise ValueError(f"fill_matrix_encode: a span ends at byte {end} "
-                             f"of a {len(raw)}-byte buffer")
-    lib = _load()
-    if lib is None:
-        return False
-    dst = out[row0 : row0 + n]
-    raw_c = np.frombuffer(raw, dtype=np.uint8)
-    offsets_c = np.ascontiguousarray(offsets, dtype=np.int64)
-    lens_c = np.ascontiguousarray(lens, dtype=np.int64)
-    lib.nimble_fill_matrix_encode(
-        raw_c.ctypes.data, offsets_c.ctypes.data, lens_c.ctypes.data,
-        n, out.shape[1], dst.ctypes.data, n_threads,
-    )
-    return True
-
-
-def fastq_scan2(buf: bytes, is_final: bool, max_records: int):
-    """Streaming FASTQ scan: (seq_offsets, seq_lens, consumed_bytes) over the
-    COMPLETE records in ``buf``; the caller carries ``buf[consumed:]`` into
-    the next block.  None if native absent; raises the reference's
-    ValueError on malformed input."""
-    lib = _load()
-    if lib is None:
-        return None
+    for a in (offsets, lens):
+        if a.dtype != np.int64 or not a.flags.c_contiguous:
+            raise ValueError("fastq_scan2: offsets and lens must be "
+                             "contiguous int64 arrays")
+    if len(lens) < len(offsets):
+        raise ValueError(f"fastq_scan2: {len(lens)} lengths for "
+                         f"{len(offsets)} offsets")
     arr = np.frombuffer(buf, dtype=np.uint8)
-    offsets = np.empty(max_records, dtype=np.int64)
-    lens = np.empty(max_records, dtype=np.int64)
-    consumed = np.zeros(1, dtype=np.int64)
+    stats = np.zeros(2, dtype=np.int64)
     n = lib.nimble_fastq_scan2(
         arr.ctypes.data, len(arr), 1 if is_final else 0,
-        offsets.ctypes.data, lens.ctypes.data, max_records,
-        consumed.ctypes.data,
+        offsets.ctypes.data, lens.ctypes.data, len(offsets),
+        stats.ctypes.data,
     )
     if n < 0:
         raise ValueError("Unable to read sequence")
-    return offsets[:n], lens[:n], int(consumed[0])
+    return n, int(stats[0]), int(stats[1])
+
+
+def fill_matrix_encode(raw, offsets: np.ndarray, lens: np.ndarray,
+                       W: int, out: np.ndarray, row0: int = 0) -> bool:
+    """Fill rows [row0, row0+n) of the C-contiguous (N, W) int8 matrix
+    ``out`` straight from the RAW FASTQ text ``raw`` (bytes or a uint8
+    array): row i holds the base codes of ``raw[offsets[i]:][:lens[i]]``
+    (A/a=0 C/c=1 G/g=2 T/t=3, anything else 0, as utils.dna.encode_bases)
+    and zeros past them, so ``out`` may come from ``np.empty``; a row is
+    ``out.shape[1]`` wide (``W`` is kept for the JAX package's signature).
+    Returns False when native is unavailable.  Raises ValueError, writing
+    nothing, when a span is longer than a row of ``out``, the rows run past
+    ``out``, or a span runs past ``raw``.
+    """
+    lib = _load()
+    if lib is None:
+        return False
+    n = len(offsets)
+    if out.dtype != np.int8 or out.ndim != 2 or not out.flags.c_contiguous:
+        raise ValueError("fill_matrix_encode: out must be a C-contiguous "
+                         "2-D int8 array")
+    if row0 < 0 or row0 + n > out.shape[0]:
+        raise ValueError(f"fill_matrix_encode: rows {row0}..{row0 + n} "
+                         f"run past the {out.shape[0]} rows of out")
+    raw_c = np.frombuffer(raw, dtype=np.uint8)
+    offsets_c = np.ascontiguousarray(offsets, dtype=np.int64)
+    lens_c = np.ascontiguousarray(lens, dtype=np.int64)
+    if len(lens_c) != n:
+        raise ValueError(f"fill_matrix_encode: {len(lens_c)} lengths for "
+                         f"{n} offsets")
+    bad = lib.nimble_fill_matrix_encode(
+        raw_c.ctypes.data, len(raw_c), offsets_c.ctypes.data,
+        lens_c.ctypes.data, n, out.shape[1], out[row0:].ctypes.data,
+    )
+    if bad >= 0:
+        off, ln = int(offsets_c[bad]), int(lens_c[bad])
+        if not 0 <= ln <= out.shape[1]:
+            raise ValueError(f"fill_matrix_encode: a length of {ln} exceeds "
+                             f"the row width {out.shape[1]}")
+        raise ValueError(f"fill_matrix_encode: a span ends at byte "
+                         f"{off + ln} of a {len(raw_c)}-byte buffer")
+    return True
 
 
 def extract_kmer_keys(codes: np.ndarray, k: int) -> np.ndarray | None:

@@ -44,7 +44,8 @@ from nimble_tpu_torch.utils.metrics import RECORDER, count, span, traced_pass
 # streaming chunk size for the fast path (reads per device batch)
 DEFAULT_CHUNK_READS = 1 << 17
 # a traced pass's counters, printed as its ``[fastq counts]`` line
-COUNTERS = ("fastq.reads_in", "fastq.rows_launched", "fastq.rescued")
+COUNTERS = ("fastq.reads_in", "fastq.rows_launched", "fastq.rescued",
+            "fastq.bytes_in", "fastq.parse.buffer_grows")
 
 def _drain_pending(pending, multi, chunk=None) -> None:
     """Process buffered chunk handles; with the multi-library dispatcher the
@@ -183,13 +184,11 @@ def _dispatch_multi(multi, fetcher, mat, lens, mate_mat, mate_lens,
 def _prefetch_iter(it, depth: int = 2):
     """Run an iterator one-or-two items ahead on its own thread.
 
-    The FASTQ chunk parse (C++ block scan + matrix fill, GIL-releasing)
-    costs ~45 ms per 131k-read chunk; inline it serializes with the count
-    stage on the main thread (~0.18 s per 524k round = the measured gap
-    between the from-disk e2e rate and the in-memory headline).  A single
-    ordered worker hides it behind the device stage.  Exceptions re-raise
-    at the same consume point.  Each item's parse is the span
-    ``fastq.parse``, its chunk the item's index.
+    The FASTQ chunk parse (one read, then the C++ scan and matrix fill,
+    both GIL-releasing) would otherwise serialize with the count stage on
+    the main thread.  A single ordered worker hides it behind the device
+    stage.  Exceptions re-raise at the same consume point.  Each item's
+    parse is the span ``fastq.parse``, its chunk the item's index.
     """
     import queue as _queue
     import threading as _threading

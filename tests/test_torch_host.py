@@ -62,7 +62,7 @@ def _ragged(rng, n, lo, hi, high=4, dtype=np.int8):
 
 # --- native (C++ host library, or its NumPy fallback) -----------------------
 
-NATIVE_CASES = ["encode_bases_bulk", "pack_reads_64", "pack_reads_92",
+NATIVE_CASES = ["fastq_scan", "pack_reads_64", "pack_reads_92",
                 "fill_matrix_encode", "orient_decode", "take_rows",
                 "extract_kmer_keys", "owner_hash"]
 
@@ -70,9 +70,13 @@ NATIVE_CASES = ["encode_bases_bulk", "pack_reads_64", "pack_reads_92",
 @pytest.mark.parametrize("op", NATIVE_CASES)
 def test_native_ops_match(op):
     rng = np.random.default_rng(NATIVE_CASES.index(op))
-    if op == "encode_bases_bulk":
-        data = bytes(rng.choice(list(b"ACGTacgtNnRY-\n@+"), 5000))
-        _same(lambda s: s.native.encode_bases_bulk(data))
+    if op == "fastq_scan":
+        # a whole file's scan: CRLF and trailing spaces, blank lines, '@'
+        # quality lines, empty sequences, no newline at the end
+        data = _fastq_bytes(rng, rng.integers(0, 130, 300), crlf=True,
+                            spaces=True, blanks=True, quality_at=True,
+                            last_newline=False)
+        _same(lambda s: s.native.fastq_scan(data, 1000))
     elif op.startswith("pack_reads"):
         bucket = int(op.rsplit("_", 1)[1])
         mat = rng.integers(0, 4, (300, 120)).astype(np.int8)
@@ -130,21 +134,187 @@ def test_native_build_is_the_ports_own():
 
 # --- FASTQ, trim, orientation, dedupe, writers ------------------------------
 
-@pytest.mark.parametrize("chunk_reads", [7, 64, 1 << 17])
-@pytest.mark.parametrize("fastq", ["basic.fastq", "fastq_pipeline_test_r1.fastq",
-                                   "synthetic"])
-def test_fastq_chunks_match(tmp_path, fastq, chunk_reads):
-    if fastq == "synthetic":
+def _fastq_bytes(rng, lens, *, crlf=False, spaces=False, blanks=False,
+                 quality_at=False, last_newline=True, width=None):
+    """FASTQ text of records whose sequences have ``lens`` bases drawn
+    from ACGTN and lower case: CRLF line ends, trailing spaces on every
+    line, blank lines between records (and first and last), quality lines
+    that start with '@', or no newline after the last line, as asked."""
+    eol = b"\r\n" if crlf else b"\n"
+    pad = b"  " if spaces else b""
+    out = [b"\n \r\n" if blanks else b""]
+    for i, n in enumerate(lens):
+        seq = bytes(rng.choice(list(b"ACGTNacgtn"), int(n)))
+        qual = bytes(rng.choice(list(b"I#5@"), int(n)))
+        if quality_at and i % 2 == 0:
+            qual = b"@" + qual[1:] if n else b"@"
+        out.append(b"@r%d x" % i + pad + eol + seq + pad + eol + b"+" + pad
+                   + eol + qual + pad + eol)
+        if blanks and i % 3 == 1:
+            out.append(eol + b"   " + eol)
+    data = b"".join(out)
+    if not last_newline:
+        data = data.rstrip(b"\r\n ")
+    return data
+
+
+# kinds of FASTQ input for the chunked parse; a kind in _TINY_BUFFER runs
+# the port with a first buffer of about a byte a record
+_FASTQ_KINDS = ["basic.fastq", "fastq_pipeline_test_r1.fastq", "synthetic",
+                "crlf_spaces", "blank_lines", "quality_at", "straddle",
+                "long_record", "no_final_newline", "mixed_lengths", "gzip",
+                "paired"]
+_TINY_BUFFER = ("straddle", "long_record")
+
+
+def _fastq_inputs(tmp_path, kind):
+    """The input files of a FASTQ kind (R1 and R2 for ``paired``)."""
+    import gzip
+
+    if kind.endswith(".fastq"):
+        return [reads_path(kind)]
+    if kind == "synthetic":
         from nimble_tpu_torch.workload import write_workload
 
-        path = write_workload(str(tmp_path / "wl"), n_features=5,
-                              feat_len=300, read_len=90, n_reads=700,
-                              seed=3).inputs[0]
+        return [write_workload(str(tmp_path / "wl"), n_features=5,
+                               feat_len=300, read_len=90, n_reads=700,
+                               seed=3).inputs[0]]
+    rng = np.random.default_rng(_FASTQ_KINDS.index(kind))
+    if kind == "paired":
+        # mates of other lengths, so the two files' chunks differ in bytes
+        texts = [_fastq_bytes(rng, rng.integers(20, 60, 500)),
+                 _fastq_bytes(rng, rng.integers(100, 160, 500), crlf=True)]
+    elif kind == "long_record":
+        lens = rng.integers(30, 100, 20)
+        lens[9] = 200_000
+        texts = [_fastq_bytes(rng, lens)]
     else:
-        path = reads_path(fastq)
-    chunks = _same(
-        lambda s: list(s.iter_fastq_matrix_chunks(path, chunk_reads)))
-    assert len(chunks) >= 1
+        lens = (rng.integers(0, 300, 400) if kind == "mixed_lengths"
+                else rng.integers(60, 120, 400))
+        texts = [_fastq_bytes(rng, lens, crlf=kind == "crlf_spaces",
+                              spaces=kind == "crlf_spaces",
+                              blanks=kind == "blank_lines",
+                              quality_at=kind == "quality_at",
+                              last_newline=kind != "no_final_newline")]
+    paths = []
+    for i, text in enumerate(texts):
+        path = tmp_path / f"{kind}_{i}.fastq"
+        if kind == "gzip":
+            path = tmp_path / "reads.fastq.gz"
+            text = gzip.compress(text)
+        path.write_bytes(text)
+        paths.append(str(path))
+    return paths
+
+
+def _decompressed_size(path):
+    import gzip
+
+    with open(path, "rb") as f:
+        data = f.read()
+    return len(gzip.decompress(data) if data[:2] == b"\x1f\x8b" else data)
+
+
+@pytest.mark.parametrize("chunk_reads", [7, 64, 1 << 17])
+@pytest.mark.parametrize("fastq", _FASTQ_KINDS)
+def test_fastq_chunks_match(tmp_path, monkeypatch, fastq, chunk_reads):
+    """The port's chunks equal the JAX package's, chunk for chunk: exactly
+    ``chunk_reads`` records each, every chunk as wide as its own longest
+    read and zero past each length; a traced parse counts the file's bytes,
+    and a buffer too small for a chunk grows."""
+    from nimble_tpu_torch.io import fastq as port_fastq
+    from nimble_tpu_torch.utils.metrics import RECORDER
+
+    paths = _fastq_inputs(tmp_path, fastq)
+    if fastq in _TINY_BUFFER:
+        monkeypatch.setattr(port_fastq, "FIRST_BYTES_PER_RECORD", 1)
+    monkeypatch.setenv("NIMBLE_TIMING", "1")
+    RECORDER.clear()
+    per_file = []
+    for path in paths:
+        want = _plain(list(JAX.iter_fastq_matrix_chunks(path, chunk_reads)))
+        with RECORDER.traced_pass("fastq.pass"):
+            chunks = list(PORT.iter_fastq_matrix_chunks(path, chunk_reads))
+        assert _plain(chunks) == want
+        per_file.append([len(lens) for _mat, lens in chunks])
+        for mat, lens in chunks:
+            assert mat.shape[1] == max(int(lens.max()), 1)
+            assert not (mat * (np.arange(mat.shape[1]) >= lens[:, None])).any()
+    assert all(n == chunk_reads for n in per_file[0][:-1])
+    assert per_file[0] == per_file[-1]  # paired files chunk in lockstep
+    assert RECORDER.counters["fastq.bytes_in"] == sum(
+        _decompressed_size(p) for p in paths)
+    grows = RECORDER.counters.get("fastq.parse.buffer_grows", 0)
+    if fastq in _TINY_BUFFER:
+        assert grows >= 1
+    elif chunk_reads == 1 << 17:
+        assert grows == 0  # the first buffer holds the whole file
+
+
+@pytest.mark.parametrize("fastq", [k for k in _FASTQ_KINDS if k != "paired"])
+def test_fastq_matrix_match(tmp_path, fastq):
+    """``read_fastq_matrix`` equals the JAX package's on every kind, and
+    ``read_fastq_matrix_byterange`` over thirds of a plain file too."""
+    path = _fastq_inputs(tmp_path, fastq)[0]
+    fastq_mod = {id(s): s.module("io.fastq") for s in SIDES}
+    _same(lambda s: fastq_mod[id(s)].read_fastq_matrix(path))
+    if fastq != "gzip":
+        size = _decompressed_size(path)
+        bounds = [0, size // 3, 2 * size // 3, size]
+        _same(lambda s: [fastq_mod[id(s)].read_fastq_matrix_byterange(
+            path, lo, hi) for lo, hi in zip(bounds, bounds[1:])])
+
+
+def _malformed(kind):
+    """(good records, the fault after them): a record a line short, a
+    header without '@', a separator without '+', or a file that ends after
+    a header, after a separator, or inside a sequence line."""
+    rng = np.random.default_rng(7)
+    return _fastq_bytes(rng, rng.integers(40, 90, 30)), {
+        "bad_header": b"r31\nACGT\n+\nIIII\n@r32\nA\n+\nI\n",
+        "bad_separator": b"@r31\nACGT\n-\nIIII\n",
+        "missing_record_line": b"@r31\nACGT\n+\n@r32\nACGT\n+\nIIII\n",
+        "ends_after_header": b"@r31\n",
+        "ends_after_separator": b"@r31\nACGT\n+\n",
+        "ends_in_sequence": b"@r31\nACG",
+    }[kind]
+
+
+@pytest.mark.parametrize("reader", ["chunks_7", "chunks_big", "matrix",
+                                    "byterange"])
+@pytest.mark.parametrize("kind", ["bad_header", "bad_separator",
+                                  "missing_record_line", "ends_after_header",
+                                  "ends_after_separator", "ends_in_sequence",
+                                  "invalid_data"])
+def test_malformed_fastq_raises_like_the_jax_package(tmp_path, kind, reader):
+    """Both packages raise "Unable to read sequence" on a malformed or
+    truncated file; the chunks the port yields before it hold only the
+    good records, in order."""
+    good_path = tmp_path / "good.fastq"
+    if kind == "invalid_data":  # its first line is no header
+        path = reads_path("fastq_invalid_data.fastq")
+        good_path.write_bytes(b"")
+    else:
+        good, fault = _malformed(kind)
+        good_path.write_bytes(good)
+        path = str(tmp_path / "bad.fastq")
+        with open(path, "wb") as f:
+            f.write(good + fault)
+    size = _decompressed_size(path)
+    for side in SIDES:
+        fastq_mod = side.module("io.fastq")
+        rows = []
+        with pytest.raises(ValueError, match="Unable to read sequence"):
+            if reader == "matrix":
+                fastq_mod.read_fastq_matrix(path)
+            elif reader == "byterange":
+                fastq_mod.read_fastq_matrix_byterange(path, 0, size)
+            else:
+                chunk = 7 if reader == "chunks_7" else 1 << 17
+                for mat, lens in side.iter_fastq_matrix_chunks(path, chunk):
+                    rows += [bytes(m[:n]) for m, n in zip(mat, lens)]
+        good = [bytes(c) for c in side.read_fastq_codes(str(good_path))]
+        assert rows == good[:len(rows)]
 
 
 def _quality_at_fastq(path, n=40):

@@ -274,6 +274,21 @@ def test_a_traced_fastq_pass_spans_every_thread_of_each_chunk(
     assert not RECORDER.on
 
 
+def test_a_traced_fastq_pass_counts_the_bytes_it_parsed(
+        fastq_job, traced, tmp_path, capsys):
+    """The ``[fastq counts]`` line gives the FASTQ's size as the bytes the
+    parse took in, and the times its read buffer grew: none, since the
+    first buffer holds a chunk of these reads."""
+    import os
+
+    RECORDER.clear()
+    _fastq_pass(fastq_job, tmp_path / "out.tsv")
+    err = capsys.readouterr().err
+    size = os.path.getsize(fastq_job[0].inputs[0])
+    assert RECORDER.counters["fastq.bytes_in"] == size
+    assert f"rescued 0 bytes-in {size} parse.buffer-grows 0\n" in err
+
+
 def test_an_untraced_fastq_pass_records_nothing(fastq_job, monkeypatch,
                                                  tmp_path, capsys):
     monkeypatch.delenv("NIMBLE_TIMING", raising=False)
