@@ -19,14 +19,8 @@
 
 #include <algorithm>
 #include <atomic>
-#include <condition_variable>
 #include <cstdint>
-#include <chrono>
-#include <cstdio>
-#include <cstdlib>
 #include <cstring>
-#include <deque>
-#include <mutex>
 #include <string>
 #include <thread>
 #include <unordered_map>
@@ -1672,765 +1666,6 @@ int32_t nimble_bgzf_inflate(const uint8_t* data, int64_t n,
     }
     for (auto& w : workers) w.join();
     return err.load(std::memory_order_relaxed);
-}
-
-}  // extern "C"
-
-// ===========================================================================
-// BamPipe: the BAM producer as a native pipeline stage.
-//
-// The reference's producer is one htslib C thread streaming UMI groups into
-// a bounded channel (`src/process/bam.rs:149,157-180`).  Here the whole
-// producer front half — file read, parallel BGZF inflate, record scan,
-// metadata derivation, skip filtering and UMI-run/pair/group emission —
-// runs on a DEDICATED C++ worker thread that never touches the GIL,
-// handing Python fully-formed, emission-ready column batches through a
-// bounded slot queue (so inflate/scan of chunk n+1 overlaps consumption of
-// chunk n).  Irregular streams (unpaired-qname warnings, which need the
-// reference's exact stderr output) hand the raw record columns back to the
-// Python fallback and resume from its ack.
-//
-// Semantics are identical to nimble_tpu/io/bam_columnar.py's
-// ColumnarGroupStream (the pure-Python orchestration of these same
-// kernels); that class remains the fallback and the parity reference.
-// ===========================================================================
-
-namespace bampipe {
-
-static inline double now_s() {
-    return std::chrono::duration<double>(
-        std::chrono::steady_clock::now().time_since_epoch()).count();
-}
-
-struct Ragged {
-    std::vector<int64_t> offs{0};
-    std::vector<uint8_t> flat;
-    int64_t n() const { return (int64_t)offs.size() - 1; }
-    void clear() { offs.assign(1, 0); flat.clear(); }
-    void push(const uint8_t* p, int64_t len) {
-        flat.insert(flat.end(), p, p + len);
-        offs.push_back((int64_t)flat.size());
-    }
-    void push_cstr(const char* s) {
-        push((const uint8_t*)s, (int64_t)std::strlen(s));
-    }
-    void append_row(const Ragged& src, int64_t i) {
-        push(src.flat.data() + src.offs[i], src.offs[i + 1] - src.offs[i]);
-    }
-    const uint8_t* row(int64_t i) const { return flat.data() + offs[i]; }
-    int64_t row_len(int64_t i) const { return offs[i + 1] - offs[i]; }
-    void drop_front(int64_t k) {
-        if (k <= 0) return;
-        int64_t cut = offs[k];
-        flat.erase(flat.begin(), flat.begin() + cut);
-        offs.erase(offs.begin(), offs.begin() + k);
-        for (auto& o : offs) o -= cut;
-    }
-    // append rows of (offs,flat) scratch filtered by a keep mask
-    void append_filtered(const int64_t* soffs, const uint8_t* sflat,
-                         const uint8_t* keep, int64_t n) {
-        for (int64_t i = 0; i < n; ++i)
-            if (keep[i]) push(sflat + soffs[i], soffs[i + 1] - soffs[i]);
-    }
-};
-
-// scanned + filtered records awaiting run emission (the Python _Carry)
-struct ColumnSet {
-    Ragged meta, meta1, meta15, rev2, qn, sk, cb, umi, qname_raw, seq;
-    std::vector<uint8_t> oflags;
-    int64_t n() const { return (int64_t)oflags.size(); }
-    void clear() {
-        meta.clear(); meta1.clear(); meta15.clear(); rev2.clear();
-        qn.clear(); sk.clear(); cb.clear(); umi.clear(); qname_raw.clear();
-        seq.clear(); oflags.clear();
-    }
-    void drop_front(int64_t k) {
-        if (k <= 0) return;
-        meta.drop_front(k); meta1.drop_front(k); meta15.drop_front(k);
-        rev2.drop_front(k); qn.drop_front(k); sk.drop_front(k);
-        cb.drop_front(k); umi.drop_front(k); qname_raw.drop_front(k);
-        seq.drop_front(k);
-        oflags.erase(oflags.begin(), oflags.begin() + k);
-    }
-};
-
-struct Slot {
-    int32_t kind = 0;  // 0 emit, 1 irregular carry, 2 terminal
-    // --- emit payload (pend-ready columns, already row-taken) ---
-    Ragged e_meta, e_skipb, e_qual, e_rev2, e_seq15, e_qn, e_seq;
-    std::vector<uint8_t> skip_true;
-    std::vector<int64_t> group_starts;
-    int32_t truncated = 0;
-    // --- irregular payload ---
-    ColumnSet carry;
-    int32_t at_eof = 0, missing_umi = 0;
-    // --- terminal payload / state snapshot ---
-    int32_t error_kind = 0;  // 0 clean, 1 truncated BAM, 2 missing UMI,
-                             // 3 gzip error, 4 gzip EOF mid-member
-    int32_t gz_status = 0;
-    int32_t free_pass_used = 0;
-    int64_t groups_started_total = 0;
-    int64_t entries_since_pass = 0;
-    void clear_emit() {
-        e_meta.clear(); e_skipb.clear(); e_qual.clear(); e_rev2.clear();
-        e_seq15.clear(); e_qn.clear(); e_seq.clear();
-        skip_true.clear(); group_starts.clear();
-        truncated = 0;
-    }
-};
-
-struct Pipe {
-    static constexpr int kSlots = 4;
-    static constexpr int64_t kRawChunk = 4 << 20;
-
-    // stage profile (worker-private; printed at exit when NIMBLE_PIPE_PROF)
-    double t_read = 0, t_inflate = 0, t_scan = 0, t_emit = 0, t_slot = 0;
-    double t_bscan = 0, t_meta = 0, t_append = 0; int n_meta = 0;
-
-    std::FILE* f = nullptr;
-    int32_t force_paired = 0;
-
-    // stream buffers (worker-private)
-    std::vector<uint8_t> raw;  // compressed carry
-    std::vector<uint8_t> bam;  // inflated, not yet scanned
-    ColumnSet carry;
-    bool raw_eof = false;
-    bool missing_umi = false;
-    int gz_err = 0;
-    bool gz_eof_mid = false;
-
-    // run state (worker-private; snapshotted into slots)
-    int32_t free_pass_used = 0;
-    int64_t groups_started_total = 0;
-    int64_t entries_since_pass = 0;
-
-    // scan/meta scratch with persistent capacity (worker-private)
-    std::vector<int32_t> s_fixed;
-    std::vector<int64_t> s_qn_off, s_seq_off, s_qual_off, s_aux_off, s_cig_off;
-    std::vector<uint8_t> s_qn, s_seq, s_qual, s_aux;
-    std::vector<uint32_t> s_cig;
-    std::vector<int64_t> m_offs[9];   // meta,seq2,meta1,meta15,rev2,qn,cb,umi,sk
-    std::vector<uint8_t> m_flat[9];
-    std::vector<uint8_t> s_oflags, s_keep;
-    std::vector<int64_t> r_emit_idx, r_group_off;
-    std::vector<int8_t> r_emit_skip;
-
-    // queue
-    std::mutex mu;
-    std::condition_variable cv;
-    std::deque<Slot*> ready;
-    std::vector<Slot*> freelist;
-    Slot* handed = nullptr;
-    bool awaiting_ack = false, got_ack = false, ack_stop = false;
-    int64_t ack_consumed = 0;
-    int32_t ack_free_pass = 0;
-    int64_t ack_groups = 0, ack_entries = 0;
-    bool closed = false;
-    std::thread worker;
-
-    ~Pipe() {
-        if (f) std::fclose(f);
-        for (Slot* s : freelist) delete s;
-        for (Slot* s : ready) delete s;
-        delete handed;
-    }
-};
-
-// read one raw chunk and inflate complete BGZF members onto pipe->bam.
-// Returns false on a sticky gzip error (gz_err / gz_eof_mid set).
-bool ingest(Pipe* P) {
-    if (!P->raw_eof) {
-        double t0 = now_s();
-        size_t old = P->raw.size();
-        P->raw.resize(old + (size_t)Pipe::kRawChunk);
-        size_t got = std::fread(P->raw.data() + old, 1,
-                                (size_t)Pipe::kRawChunk, P->f);
-        P->raw.resize(old + got);
-        if (got < (size_t)Pipe::kRawChunk) P->raw_eof = true;
-        P->t_read += now_s() - t0;
-    }
-    double t1 = now_s();
-    if (P->raw.empty()) return true;
-    std::vector<BgzfBlock> blocks;
-    int64_t consumed = 0, total = 0;
-    int rc = bgzf_parse(P->raw.data(), (int64_t)P->raw.size(), &blocks,
-                        &consumed, &total);
-    if (rc) { P->gz_err = rc; return false; }
-    if (consumed == 0) {
-        if (P->raw_eof) { P->gz_eof_mid = true; return false; }
-        return true;
-    }
-    size_t old = P->bam.size();
-    P->bam.resize(old + (size_t)total);
-    int64_t nb = (int64_t)blocks.size();
-    int nt = (int)std::min<int64_t>(
-        4, std::max<int64_t>(1, (int64_t)std::thread::hardware_concurrency()));
-    int err = 0;
-    if (nt <= 1 || nb < 4) {
-        err = bgzf_inflate_range(P->raw.data(), blocks.data(), 0, nb,
-                                 P->bam.data() + old);
-    } else {
-        std::atomic<int> aerr{0};
-        std::vector<std::thread> ws;
-        for (int t = 0; t < nt; ++t) {
-            int64_t lo = nb * t / nt, hi = nb * (t + 1) / nt;
-            ws.emplace_back([&, lo, hi] {
-                int e = bgzf_inflate_range(P->raw.data(), blocks.data(), lo,
-                                           hi, P->bam.data() + old);
-                if (e) aerr.store(e, std::memory_order_relaxed);
-            });
-        }
-        for (auto& w : ws) w.join();
-        err = aerr.load(std::memory_order_relaxed);
-    }
-    if (err) { P->gz_err = err; return false; }
-    P->raw.erase(P->raw.begin(), P->raw.begin() + consumed);
-    P->t_inflate += now_s() - t1;
-    return true;
-}
-
-// scan + meta + skip-filter whatever complete records sit in pipe->bam,
-// appending survivors to the carry.  Returns records appended (post-filter
-// count may be 0 even when records were consumed — reported via *consumed).
-int64_t scan_once(Pipe* P, int64_t* scanned) {
-    *scanned = 0;
-    int64_t nbytes = (int64_t)P->bam.size();
-    if (nbytes == 0) return 0;
-    int64_t max_rec = nbytes / 36 + 1;
-    P->s_fixed.resize((size_t)(max_rec * 8));
-    P->s_qn_off.resize((size_t)(max_rec + 1));
-    P->s_seq_off.resize((size_t)(max_rec + 1));
-    P->s_qual_off.resize((size_t)(max_rec + 1));
-    P->s_aux_off.resize((size_t)(max_rec + 1));
-    P->s_cig_off.resize((size_t)(max_rec + 1));
-    P->s_qn.resize((size_t)nbytes + 16);
-    P->s_seq.resize((size_t)(2 * nbytes) + 16);
-    P->s_qual.resize((size_t)nbytes + 16);
-    P->s_aux.resize((size_t)nbytes + 16);
-    P->s_cig.resize((size_t)(nbytes / 4) + 4);
-    int64_t consumed = 0;
-    double tb = now_s();
-    int64_t cnt = nimble_bam_scan(
-        P->bam.data(), nbytes, max_rec, P->s_fixed.data(),
-        P->s_qn_off.data(), P->s_qn.data(), P->s_seq_off.data(),
-        P->s_seq.data(), P->s_qual_off.data(), P->s_qual.data(),
-        P->s_aux_off.data(), P->s_aux.data(), P->s_cig_off.data(),
-        P->s_cig.data(), &consumed);
-    P->t_bscan += now_s() - tb;
-    if (cnt == 0) return 0;
-    *scanned = cnt;
-    P->bam.erase(P->bam.begin(), P->bam.begin() + consumed);
-
-    // meta derivation: analytic per-column caps (the same sizing the
-    // Python pool uses, nimble_tpu/native.py bam_meta) so the first call
-    // virtually never retries; retry-double remains the safety net
-    for (int j = 0; j < 9; ++j) P->m_offs[j].resize((size_t)(cnt + 1));
-    {
-        int64_t qn_total = P->s_qn_off[(size_t)cnt];
-        int64_t seq_total = P->s_seq_off[(size_t)cnt];
-        int64_t qual_total = P->s_qual_off[(size_t)cnt];
-        int64_t aux_total = P->s_aux_off[(size_t)cnt];
-        const int64_t caps[9] = {
-            qn_total + aux_total * 16 + 240 * cnt + 64,  // meta
-            seq_total + 64,                              // seq2
-            qual_total + aux_total + 64,                 // meta1
-            seq_total + aux_total + 64,                  // meta15
-            5 * cnt + aux_total + 64,                    // rev2
-            qn_total + aux_total + 64,                   // qn
-            aux_total + 64,                              // cb
-            aux_total + 64,                              // umi
-            aux_total + 64,                              // sk
-        };
-        for (int j = 0; j < 9; ++j)
-            if (P->m_flat[j].size() < (size_t)caps[j])
-                P->m_flat[j].resize((size_t)caps[j]);
-    }
-    P->s_oflags.resize((size_t)cnt);
-    double tm = now_s();
-    while (true) {
-        P->n_meta++;
-        int32_t rc = nimble_bam_meta(
-            P->s_fixed.data(), P->s_qn_off.data(), P->s_qn.data(),
-            P->s_seq_off.data(), P->s_seq.data(), P->s_qual_off.data(),
-            P->s_qual.data(), P->s_aux_off.data(), P->s_aux.data(), cnt,
-            P->m_flat[0].data(), P->m_offs[0].data(), (int64_t)P->m_flat[0].size(),
-            (int8_t*)P->m_flat[1].data(), P->m_offs[1].data(), (int64_t)P->m_flat[1].size(),
-            P->m_flat[2].data(), P->m_offs[2].data(), (int64_t)P->m_flat[2].size(),
-            P->m_flat[3].data(), P->m_offs[3].data(), (int64_t)P->m_flat[3].size(),
-            P->m_flat[4].data(), P->m_offs[4].data(), (int64_t)P->m_flat[4].size(),
-            P->m_flat[5].data(), P->m_offs[5].data(), (int64_t)P->m_flat[5].size(),
-            P->m_flat[6].data(), P->m_offs[6].data(), (int64_t)P->m_flat[6].size(),
-            P->m_flat[7].data(), P->m_offs[7].data(), (int64_t)P->m_flat[7].size(),
-            P->m_flat[8].data(), P->m_offs[8].data(), (int64_t)P->m_flat[8].size(),
-            P->s_oflags.data());
-        if (rc == 0) break;
-        for (int j = 0; j < 9; ++j) P->m_flat[j].resize(P->m_flat[j].size() * 2);
-    }
-    P->t_meta += now_s() - tm;
-
-    // skip rules, reference order (`sorted_bam_reader.rs:45-68`)
-    P->s_keep.assign((size_t)cnt, 1);
-    for (int64_t i = 0; i < cnt; ++i) {
-        uint8_t fl = P->s_oflags[i];
-        if (P->force_paired && !(fl & 1)) P->s_keep[i] = 0;
-        if (!(fl & 4)) P->s_keep[i] = 0;  // no CB tag
-    }
-    // missing UMI on a surviving record: fatal — keep only the prefix
-    for (int64_t i = 0; i < cnt; ++i) {
-        if (P->s_keep[i] && !(P->s_oflags[i] & 8)) {
-            for (int64_t j = i; j < cnt; ++j) P->s_keep[j] = 0;
-            P->missing_umi = true;
-            break;
-        }
-    }
-    // whitelisted-UMI filter: drop UMI == "AAAAAAAAAA"
-    const int64_t* uoff = P->m_offs[7].data();
-    const uint8_t* uflat = P->m_flat[7].data();
-    for (int64_t i = 0; i < cnt; ++i) {
-        if (!P->s_keep[i]) continue;
-        int64_t ul = uoff[i + 1] - uoff[i];
-        if (ul == 10) {
-            bool all_a = true;
-            for (int64_t j = 0; j < 10 && all_a; ++j)
-                all_a = uflat[uoff[i] + j] == 'A';
-            if (all_a) P->s_keep[i] = 0;
-        }
-    }
-
-    int64_t appended = 0;
-    for (int64_t i = 0; i < cnt; ++i) appended += P->s_keep[i];
-    if (appended == 0) return 0;
-    double ta = now_s();
-    const uint8_t* keep = P->s_keep.data();
-    ColumnSet& c = P->carry;
-    c.meta.append_filtered(P->m_offs[0].data(), P->m_flat[0].data(), keep, cnt);
-    c.seq.append_filtered(P->m_offs[1].data(), P->m_flat[1].data(), keep, cnt);
-    c.meta1.append_filtered(P->m_offs[2].data(), P->m_flat[2].data(), keep, cnt);
-    c.meta15.append_filtered(P->m_offs[3].data(), P->m_flat[3].data(), keep, cnt);
-    c.rev2.append_filtered(P->m_offs[4].data(), P->m_flat[4].data(), keep, cnt);
-    c.qn.append_filtered(P->m_offs[5].data(), P->m_flat[5].data(), keep, cnt);
-    c.cb.append_filtered(P->m_offs[6].data(), P->m_flat[6].data(), keep, cnt);
-    c.umi.append_filtered(P->m_offs[7].data(), P->m_flat[7].data(), keep, cnt);
-    c.sk.append_filtered(P->m_offs[8].data(), P->m_flat[8].data(), keep, cnt);
-    c.qname_raw.append_filtered(P->s_qn_off.data(), P->s_qn.data(), keep, cnt);
-    for (int64_t i = 0; i < cnt; ++i)
-        if (keep[i]) c.oflags.push_back(P->s_oflags[i]);
-    P->t_append += now_s() - ta;
-    return appended;
-}
-
-// run emission over the carry; fills the slot as an EMIT.  Returns the
-// nimble_bam_runs rc (0 ok, 1 truncated, -1 irregular -> caller hands over).
-int run_emit(Pipe* P, bool at_eof, Slot* slot) {
-    slot->kind = 0;
-    slot->clear_emit();
-    ColumnSet& c = P->carry;
-    int64_t n = c.n();
-    if (n == 0) {
-        slot->free_pass_used = P->free_pass_used;
-        slot->groups_started_total = P->groups_started_total;
-        slot->entries_since_pass = P->entries_since_pass;
-        return 0;
-    }
-    P->r_emit_idx.resize((size_t)(2 * n));
-    P->r_emit_skip.resize((size_t)(2 * n));
-    P->r_group_off.resize((size_t)(2 * n + 2));
-    int64_t ec = 0, ng = 0, consumed = 0, ec_at_pass = 0;
-    int32_t free_out = 0;
-    int32_t is_final = (at_eof && !P->missing_umi) ? 1 : 0;
-    int32_t rc = nimble_bam_runs(
-        c.umi.offs.data(), c.umi.flat.data(), c.cb.offs.data(),
-        c.cb.flat.data(), c.qname_raw.offs.data(), c.qname_raw.flat.data(),
-        c.oflags.data(), n, P->force_paired, is_final, P->free_pass_used,
-        P->groups_started_total, P->r_emit_idx.data(), P->r_emit_skip.data(),
-        &ec, P->r_group_off.data(), &ng, &consumed, &free_out, &ec_at_pass);
-    if (rc == -1) return -1;
-    // state updates mirror ColumnarGroupStream.batches (bam_columnar.py)
-    if (free_out) {
-        P->free_pass_used = 1;
-        P->entries_since_pass = ec - ec_at_pass;
-    } else {
-        P->entries_since_pass += ec;
-    }
-    P->groups_started_total += ng;
-
-    for (int64_t j = 0; j < ec; ++j) {
-        int64_t i = P->r_emit_idx[j];
-        int8_t code = P->r_emit_skip[j];
-        slot->e_meta.append_row(c.meta, i);
-        slot->e_qual.append_row(c.meta1, i);
-        slot->e_rev2.append_row(c.rev2, i);
-        slot->e_seq15.append_row(c.meta15, i);
-        slot->e_qn.append_row(c.qn, i);
-        slot->e_seq.append_row(c.seq, i);
-        if (code == 2) {
-            // force_bam_paired: skip column = the BAM's own SK:Z: value
-            // verbatim; skip test = exact equality with "TRUE"
-            slot->e_skipb.append_row(c.sk, i);
-            slot->skip_true.push_back(
-                c.sk.row_len(i) == 4 &&
-                std::memcmp(c.sk.row(i), "TRUE", 4) == 0);
-        } else if (code == 1) {
-            slot->e_skipb.push_cstr("TRUE");
-            slot->skip_true.push_back(1);
-        } else {
-            slot->e_skipb.push_cstr("FALSE");
-            slot->skip_true.push_back(0);
-        }
-    }
-    slot->group_starts.assign(P->r_group_off.data(),
-                              P->r_group_off.data() + ng);
-    c.drop_front(consumed);
-    slot->truncated = (rc == 1);
-    slot->free_pass_used = P->free_pass_used;
-    slot->groups_started_total = P->groups_started_total;
-    slot->entries_since_pass = P->entries_since_pass;
-    return rc;
-}
-
-Slot* acquire_slot(Pipe* P) {
-    std::unique_lock<std::mutex> lk(P->mu);
-    P->cv.wait(lk, [&] { return P->closed || !P->freelist.empty(); });
-    if (P->closed) return nullptr;
-    Slot* s = P->freelist.back();
-    P->freelist.pop_back();
-    return s;
-}
-
-void push_ready(Pipe* P, Slot* s) {
-    std::unique_lock<std::mutex> lk(P->mu);
-    P->ready.push_back(s);
-    P->cv.notify_all();
-}
-
-void push_terminal(Pipe* P, int32_t error_kind, int32_t gz_status) {
-    Slot* s = acquire_slot(P);
-    if (!s) return;
-    s->clear_emit();
-    s->kind = 2;
-    s->error_kind = error_kind;
-    s->gz_status = gz_status;
-    s->free_pass_used = P->free_pass_used;
-    s->groups_started_total = P->groups_started_total;
-    s->entries_since_pass = P->entries_since_pass;
-    push_ready(P, s);
-}
-
-void worker_main_inner(Pipe* P);
-
-void worker_main(Pipe* P) {
-    worker_main_inner(P);
-    if (std::getenv("NIMBLE_PIPE_PROF"))
-        std::fprintf(stderr,
-            "[pipe prof] read %.3f inflate %.3f scan %.3f (bscan %.3f "
-            "meta %.3f x%d append %.3f) emit %.3f slot_wait %.3f\n",
-            P->t_read, P->t_inflate, P->t_scan, P->t_bscan, P->t_meta,
-            P->n_meta, P->t_append, P->t_emit, P->t_slot);
-}
-
-void worker_main_inner(Pipe* P) {
-    while (true) {
-        {
-            std::unique_lock<std::mutex> lk(P->mu);
-            if (P->closed) return;
-        }
-        // ---- acquire more records (the Python _scan_chunk loop) ----
-        bool at_eof = false;
-        while (true) {
-            if (P->missing_umi) { at_eof = true; break; }
-            int64_t scanned = 0;
-            double ts = now_s();
-            int64_t appended = scan_once(P, &scanned);
-            P->t_scan += now_s() - ts;
-            if (appended > 0) break;
-            if (scanned > 0) continue;  // all records filtered: scan more
-            if (P->raw_eof && P->raw.empty()) {
-                if (!P->bam.empty()) {
-                    // inflated bytes that do not form a record: the stream
-                    // ended mid-record (EOFError("truncated BAM stream"))
-                    push_terminal(P, 1, 0);
-                    return;
-                }
-                at_eof = true;
-                break;
-            }
-            if (!ingest(P)) {
-                push_terminal(P, P->gz_eof_mid ? 4 : 3, P->gz_err);
-                return;
-            }
-        }
-
-        int64_t n = P->carry.n();
-        if (n == 0 && at_eof) {
-            push_terminal(P, P->missing_umi ? 2 : 0, 0);
-            return;
-        }
-
-        double tw = now_s();
-        Slot* slot = acquire_slot(P);
-        P->t_slot += now_s() - tw;
-        if (!slot) return;
-        double te = now_s();
-        int rc = run_emit(P, at_eof, slot);
-        P->t_emit += now_s() - te;
-        if (rc == -1) {
-            // irregular run: hand the raw carry to the Python fallback and
-            // resume from its ack (consumed prefix + updated state)
-            slot->kind = 1;
-            slot->carry = P->carry;
-            slot->at_eof = at_eof ? 1 : 0;
-            slot->missing_umi = P->missing_umi ? 1 : 0;
-            slot->free_pass_used = P->free_pass_used;
-            slot->groups_started_total = P->groups_started_total;
-            slot->entries_since_pass = P->entries_since_pass;
-            {
-                std::unique_lock<std::mutex> lk(P->mu);
-                P->awaiting_ack = true;
-                P->got_ack = false;
-            }
-            push_ready(P, slot);
-            {
-                std::unique_lock<std::mutex> lk(P->mu);
-                P->cv.wait(lk, [&] { return P->closed || P->got_ack; });
-                if (P->closed) return;
-                P->awaiting_ack = false;
-            }
-            if (P->ack_stop) return;  // fallback ended the stream itself
-            P->carry.drop_front(P->ack_consumed);
-            P->free_pass_used = P->ack_free_pass;
-            P->groups_started_total = P->ack_groups;
-            P->entries_since_pass = P->ack_entries;
-            if (at_eof) {
-                push_terminal(P, P->missing_umi ? 2 : 0, 0);
-                return;
-            }
-            continue;
-        }
-        bool truncated = slot->truncated != 0;
-        slot->at_eof = at_eof ? 1 : 0;
-        push_ready(P, slot);
-        if (truncated) {
-            push_terminal(P, 0, 0);
-            return;
-        }
-        if (at_eof) {
-            push_terminal(P, P->missing_umi ? 2 : 0, 0);
-            return;
-        }
-    }
-}
-
-// Parse-and-skip the BAM header from the pipe's inflated buffer, ingesting
-// more data as needed.  Returns 0 ok, 2 not-BGZF/gzip error, 3 bad header.
-int skip_header(Pipe* P) {
-    auto need = [&](size_t want) -> bool {
-        while (P->bam.size() < want) {
-            if (!ingest(P)) return false;
-            if (P->raw_eof && P->raw.empty() && P->bam.size() < want)
-                return false;
-        }
-        return true;
-    };
-    if (!need(12)) return P->gz_err == 1 ? 2 : 3;
-    if (std::memcmp(P->bam.data(), "BAM\x01", 4) != 0) return 3;
-    int32_t l_text;
-    std::memcpy(&l_text, P->bam.data() + 4, 4);
-    if (l_text < 0) return 3;
-    size_t pos = 8 + (size_t)l_text;
-    if (!need(pos + 4)) return 3;
-    int32_t n_ref;
-    std::memcpy(&n_ref, P->bam.data() + pos, 4);
-    if (n_ref < 0) return 3;
-    pos += 4;
-    for (int32_t r = 0; r < n_ref; ++r) {
-        if (!need(pos + 4)) return 3;
-        int32_t l_name;
-        std::memcpy(&l_name, P->bam.data() + pos, 4);
-        if (l_name < 0) return 3;
-        pos += 4 + (size_t)l_name;
-        if (!need(pos + 4)) return 3;
-        pos += 4;  // l_ref
-    }
-    if (!need(pos)) return 3;
-    P->bam.erase(P->bam.begin(), P->bam.begin() + pos);
-    return 0;
-}
-
-}  // namespace bampipe
-
-extern "C" {
-
-void* nimble_bam_pipe_new(const char* path, int32_t force_paired,
-                          int32_t* status) {
-    using namespace bampipe;
-    Pipe* P = new Pipe();
-    P->force_paired = force_paired;
-    P->f = std::fopen(path, "rb");
-    if (!P->f) { *status = 1; delete P; return nullptr; }
-    int rc = skip_header(P);
-    if (rc) { *status = rc; delete P; return nullptr; }
-    for (int i = 0; i < Pipe::kSlots; ++i) P->freelist.push_back(new Slot());
-    P->worker = std::thread(worker_main, P);
-    *status = 0;
-    return P;
-}
-
-// Blocks until the next slot is ready; fills dims[24] and returns the kind
-// (0 emit, 1 irregular carry, 2 terminal) or -9 after close.  The previous
-// slot (if any) is recycled — Python must fetch before calling next again.
-int32_t nimble_bam_pipe_next(void* h, int64_t* dims) {
-    using namespace bampipe;
-    Pipe* P = (Pipe*)h;
-    std::unique_lock<std::mutex> lk(P->mu);
-    if (P->handed) {
-        P->freelist.push_back(P->handed);
-        P->handed = nullptr;
-        P->cv.notify_all();
-    }
-    P->cv.wait(lk, [&] { return P->closed || !P->ready.empty(); });
-    if (P->closed && P->ready.empty()) return -9;
-    Slot* s = P->ready.front();
-    P->ready.pop_front();
-    P->handed = s;
-    std::memset(dims, 0, 24 * sizeof(int64_t));
-    if (s->kind == 0) {
-        dims[0] = s->e_meta.n();
-        dims[1] = (int64_t)s->group_starts.size();
-        dims[2] = (int64_t)s->e_meta.flat.size();
-        dims[3] = (int64_t)s->e_skipb.flat.size();
-        dims[4] = (int64_t)s->e_qual.flat.size();
-        dims[5] = (int64_t)s->e_rev2.flat.size();
-        dims[6] = (int64_t)s->e_seq15.flat.size();
-        dims[7] = (int64_t)s->e_qn.flat.size();
-        dims[8] = (int64_t)s->e_seq.flat.size();
-        dims[9] = s->truncated;
-        dims[10] = s->free_pass_used;
-        dims[11] = s->groups_started_total;
-        dims[12] = s->entries_since_pass;
-        dims[13] = s->at_eof;
-    } else if (s->kind == 1) {
-        const ColumnSet& c = s->carry;
-        dims[0] = c.n();
-        dims[1] = (int64_t)c.meta.flat.size();
-        dims[2] = (int64_t)c.meta1.flat.size();
-        dims[3] = (int64_t)c.meta15.flat.size();
-        dims[4] = (int64_t)c.rev2.flat.size();
-        dims[5] = (int64_t)c.qn.flat.size();
-        dims[6] = (int64_t)c.sk.flat.size();
-        dims[7] = (int64_t)c.cb.flat.size();
-        dims[8] = (int64_t)c.umi.flat.size();
-        dims[9] = (int64_t)c.qname_raw.flat.size();
-        dims[10] = (int64_t)c.seq.flat.size();
-        dims[11] = s->at_eof;
-        dims[12] = s->missing_umi;
-        dims[13] = s->free_pass_used;
-        dims[14] = s->groups_started_total;
-        dims[15] = s->entries_since_pass;
-    } else {
-        dims[0] = s->error_kind;
-        dims[1] = s->gz_status;
-        dims[2] = s->free_pass_used;
-        dims[3] = s->groups_started_total;
-        dims[4] = s->entries_since_pass;
-    }
-    return s->kind;
-}
-
-static void copy_ragged(const bampipe::Ragged& r, int64_t* offs,
-                        uint8_t* flat) {
-    std::memcpy(offs, r.offs.data(), r.offs.size() * sizeof(int64_t));
-    if (!r.flat.empty()) std::memcpy(flat, r.flat.data(), r.flat.size());
-}
-
-int32_t nimble_bam_pipe_fetch_emit(
-    void* h,
-    int64_t* meta_off, uint8_t* meta_flat,
-    int64_t* skipb_off, uint8_t* skipb_flat,
-    int64_t* qual_off, uint8_t* qual_flat,
-    int64_t* rev2_off, uint8_t* rev2_flat,
-    int64_t* seq15_off, uint8_t* seq15_flat,
-    int64_t* qn_off, uint8_t* qn_flat,
-    int64_t* seq_off, uint8_t* seq_flat,
-    uint8_t* skip_true, int64_t* group_starts) {
-    using namespace bampipe;
-    Pipe* P = (Pipe*)h;
-    std::unique_lock<std::mutex> lk(P->mu);
-    Slot* s = P->handed;
-    if (!s || s->kind != 0) return -1;
-    copy_ragged(s->e_meta, meta_off, meta_flat);
-    copy_ragged(s->e_skipb, skipb_off, skipb_flat);
-    copy_ragged(s->e_qual, qual_off, qual_flat);
-    copy_ragged(s->e_rev2, rev2_off, rev2_flat);
-    copy_ragged(s->e_seq15, seq15_off, seq15_flat);
-    copy_ragged(s->e_qn, qn_off, qn_flat);
-    copy_ragged(s->e_seq, seq_off, seq_flat);
-    if (!s->skip_true.empty())
-        std::memcpy(skip_true, s->skip_true.data(), s->skip_true.size());
-    if (!s->group_starts.empty())
-        std::memcpy(group_starts, s->group_starts.data(),
-                    s->group_starts.size() * sizeof(int64_t));
-    return 0;
-}
-
-int32_t nimble_bam_pipe_fetch_carry(
-    void* h,
-    int64_t* meta_off, uint8_t* meta_flat,
-    int64_t* meta1_off, uint8_t* meta1_flat,
-    int64_t* meta15_off, uint8_t* meta15_flat,
-    int64_t* rev2_off, uint8_t* rev2_flat,
-    int64_t* qn_off, uint8_t* qn_flat,
-    int64_t* sk_off, uint8_t* sk_flat,
-    int64_t* cb_off, uint8_t* cb_flat,
-    int64_t* umi_off, uint8_t* umi_flat,
-    int64_t* qname_off, uint8_t* qname_flat,
-    int64_t* seq_off, uint8_t* seq_flat,
-    uint8_t* oflags) {
-    using namespace bampipe;
-    Pipe* P = (Pipe*)h;
-    std::unique_lock<std::mutex> lk(P->mu);
-    Slot* s = P->handed;
-    if (!s || s->kind != 1) return -1;
-    const ColumnSet& c = s->carry;
-    copy_ragged(c.meta, meta_off, meta_flat);
-    copy_ragged(c.meta1, meta1_off, meta1_flat);
-    copy_ragged(c.meta15, meta15_off, meta15_flat);
-    copy_ragged(c.rev2, rev2_off, rev2_flat);
-    copy_ragged(c.qn, qn_off, qn_flat);
-    copy_ragged(c.sk, sk_off, sk_flat);
-    copy_ragged(c.cb, cb_off, cb_flat);
-    copy_ragged(c.umi, umi_off, umi_flat);
-    copy_ragged(c.qname_raw, qname_off, qname_flat);
-    copy_ragged(c.seq, seq_off, seq_flat);
-    if (!c.oflags.empty())
-        std::memcpy(oflags, c.oflags.data(), c.oflags.size());
-    return 0;
-}
-
-void nimble_bam_pipe_ack(void* h, int64_t consumed, int32_t stop,
-                         int32_t free_pass_used, int64_t groups_started_total,
-                         int64_t entries_since_pass) {
-    using namespace bampipe;
-    Pipe* P = (Pipe*)h;
-    std::unique_lock<std::mutex> lk(P->mu);
-    P->ack_consumed = consumed;
-    P->ack_stop = stop != 0;
-    P->ack_free_pass = free_pass_used;
-    P->ack_groups = groups_started_total;
-    P->ack_entries = entries_since_pass;
-    P->got_ack = true;
-    P->cv.notify_all();
-}
-
-void nimble_bam_pipe_close(void* h) {
-    using namespace bampipe;
-    Pipe* P = (Pipe*)h;
-    {
-        std::unique_lock<std::mutex> lk(P->mu);
-        P->closed = true;
-        P->cv.notify_all();
-    }
-    if (P->worker.joinable()) P->worker.join();
-    delete P;
 }
 
 }  // extern "C"

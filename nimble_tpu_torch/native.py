@@ -157,22 +157,6 @@ def _load():
                 ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int64, ctypes.c_void_p]
-            lib.nimble_bam_pipe_new.restype = ctypes.c_void_p
-            lib.nimble_bam_pipe_new.argtypes = [
-                ctypes.c_char_p, ctypes.c_int32, ctypes.c_void_p]
-            lib.nimble_bam_pipe_next.restype = ctypes.c_int32
-            lib.nimble_bam_pipe_next.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p]
-            lib.nimble_bam_pipe_fetch_emit.restype = ctypes.c_int32
-            lib.nimble_bam_pipe_fetch_emit.argtypes = (
-                [ctypes.c_void_p] + [ctypes.c_void_p] * 16)
-            lib.nimble_bam_pipe_fetch_carry.restype = ctypes.c_int32
-            lib.nimble_bam_pipe_fetch_carry.argtypes = (
-                [ctypes.c_void_p] + [ctypes.c_void_p] * 21)
-            lib.nimble_bam_pipe_ack.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-                ctypes.c_int32, ctypes.c_int64, ctypes.c_int64]
-            lib.nimble_bam_pipe_close.argtypes = [ctypes.c_void_p]
             _lib = lib
         except Exception:
             _lib = None
@@ -770,114 +754,3 @@ def build_bucket_table(keys, starts, counts, bkey_lo, bkey_hi,
             bkey_lo.shape[0], int(width),
         )
     )
-
-
-class BamPipeError(Exception):
-    """nimble_bam_pipe_new failed; .status: 1 open, 2 not BGZF, 3 bad header.
-
-    Callers fall back to the pure-Python ColumnarGroupStream source, which
-    re-opens the file and raises the exact reference-parity error."""
-
-    def __init__(self, status: int):
-        super().__init__(f"bam pipe open failed (status {status})")
-        self.status = status
-
-
-class BamPipe:
-    """The BAM producer as a native pipeline stage (see nimble_host.cpp).
-
-    A dedicated C++ worker thread reads, BGZF-inflates, scans, derives
-    metadata, applies the reference skip rules and emits UMI-run/pair/group
-    batches — never holding the GIL.  ``next()`` blocks (GIL released)
-    until the worker has a slot ready and returns one of:
-
-      ("emit", cols, skip_true, group_starts, truncated, at_eof, state)
-      ("carry", carry_cols, oflags, at_eof, missing_umi, state)
-      ("end", error_kind, gz_status, state)
-
-    where state = (free_pass_used, groups_started_total,
-    entries_since_pass).  After a "carry" (irregular stream handed to the
-    Python fallback) the caller MUST call :meth:`ack` before ``next()``.
-    """
-
-    _EMIT_COLS = ("meta", "skipb", "qual", "rev2", "seq15", "qn", "seq")
-    _CARRY_COLS = ("meta", "meta1", "meta15", "rev2", "qn", "sk", "cb",
-                   "umi", "qname_raw", "seq")
-
-    def __init__(self, path: str, force_paired: bool):
-        lib = _load()
-        if lib is None:
-            raise BamPipeError(-1)
-        status = np.zeros(1, dtype=np.int32)
-        h = lib.nimble_bam_pipe_new(
-            path.encode(), 1 if force_paired else 0, status.ctypes.data)
-        if not h:
-            raise BamPipeError(int(status[0]))
-        self._lib = lib
-        self._h = h
-
-    def next(self):
-        dims = np.zeros(24, dtype=np.int64)
-        kind = self._lib.nimble_bam_pipe_next(self._h, dims.ctypes.data)
-        if kind == 0:
-            n = int(dims[0])
-            ng = int(dims[1])
-            offs = [np.empty(n + 1, dtype=np.int64) for _ in range(7)]
-            flats = [np.empty(max(int(dims[2 + j]), 1), dtype=np.uint8)
-                     for j in range(7)]
-            skip_true = np.empty(max(n, 1), dtype=np.uint8)
-            gstarts = np.empty(max(ng, 1), dtype=np.int64)
-            args = [self._h]
-            for o, f in zip(offs, flats):
-                args += [o.ctypes.data, f.ctypes.data]
-            args += [skip_true.ctypes.data, gstarts.ctypes.data]
-            if self._lib.nimble_bam_pipe_fetch_emit(*args) != 0:
-                raise RuntimeError("bam pipe fetch_emit failed")
-            cols = {
-                name: (offs[j], flats[j][: int(offs[j][n])])
-                for j, name in enumerate(self._EMIT_COLS)
-            }
-            state = (bool(dims[10]), int(dims[11]), int(dims[12]))
-            return ("emit", cols, skip_true[:n].view(bool), gstarts[:ng],
-                    bool(dims[9]), bool(dims[13]), state)
-        if kind == 1:
-            n = int(dims[0])
-            offs = [np.empty(n + 1, dtype=np.int64) for _ in range(10)]
-            flats = [np.empty(max(int(dims[1 + j]), 1), dtype=np.uint8)
-                     for j in range(10)]
-            oflags = np.empty(max(n, 1), dtype=np.uint8)
-            args = [self._h]
-            for o, f in zip(offs, flats):
-                args += [o.ctypes.data, f.ctypes.data]
-            args += [oflags.ctypes.data]
-            if self._lib.nimble_bam_pipe_fetch_carry(*args) != 0:
-                raise RuntimeError("bam pipe fetch_carry failed")
-            cols = {
-                name: (offs[j], flats[j][: int(offs[j][n])])
-                for j, name in enumerate(self._CARRY_COLS)
-            }
-            state = (bool(dims[13]), int(dims[14]), int(dims[15]))
-            return ("carry", cols, oflags[:n], bool(dims[11]), bool(dims[12]),
-                    state)
-        if kind == 2:
-            state = (bool(dims[2]), int(dims[3]), int(dims[4]))
-            return ("end", int(dims[0]), int(dims[1]), state)
-        raise RuntimeError(f"bam pipe next returned {kind}")
-
-    def ack(self, consumed: int, stop: bool, free_pass_used: bool,
-            groups_started_total: int, entries_since_pass: int) -> None:
-        self._lib.nimble_bam_pipe_ack(
-            self._h, int(consumed), 1 if stop else 0,
-            1 if free_pass_used else 0, int(groups_started_total),
-            int(entries_since_pass))
-
-    def close(self) -> None:
-        if self._h is not None:
-            self._lib.nimble_bam_pipe_close(self._h)
-            self._h = None
-
-    def __del__(self):
-        try:
-            self.close()
-        except Exception:
-            pass

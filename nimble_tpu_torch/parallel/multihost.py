@@ -462,8 +462,7 @@ def _process_bam_multihost(input_path, engines, references, configs,
         ok = False
         try:
             # pass 2: align + package only this host's groups (dispatch
-            # N+1's device work before packaging N, like the threaded
-            # consumer)
+            # N+1's device work before packaging N)
             g_seen = 0
             pending = None
             stream = ColumnarGroupStream(input_path, force_bam_paired)

@@ -440,21 +440,199 @@ def test_write_to_tsv_matches(tmp_path):
 
 # --- BAM, index, oracle engine ----------------------------------------------
 
-@pytest.mark.parametrize("batch_records,paired", [(64, False), (1000, False),
-                                                  (64, True)])
-def test_bam_columnar_stream_matches(batch_records, paired):
-    """The columnar group stream over the golden BAM: every batch's
-    columns, group offsets and the final-group flag."""
+_FEATS = [
+    "ACGTACGGATCCTTAGCAGTACCGATGGCATCAGGCTTACAGATTCCGGATACCGTTAGGCATCAGAT",
+    "TTGACCGGTTAACCGGATCCAGTACCATGGCCTTAGACATCCGGTAACCGATTCCAGGATCCATGACA",
+]
+_CB = b"CBX00001-1"
+_FIRST, _SECOND, _R2 = 0x1 | 0x40, 0x1 | 0x80, 0x1 | 0x80 | 0x10
+
+
+def _synthetic_bam(**kw):
+    def write(path):
+        from nimble_tpu.io.synth import make_synthetic_bam
+
+        make_synthetic_bam(path, _FEATS, **kw)
+    return write
+
+
+def _records_bam(make_records):
+    """A BAM of the records ``make_records(rec, frag)`` lists, written by
+    the JAX package's writer: ``rec(qname, flag, ub=...)`` is one record
+    with a 60 bp fragment of ``_FEATS``, CB ``_CB`` and UMI ``ub`` (None:
+    no UB tag)."""
+    def write(path):
+        from nimble_tpu.io.bam import BamHeader, BamRecord, write_bam
+
+        rng = np.random.default_rng(3)
+
+        def rec(qname, flag, ub=b"CCCCCCCCCC"):
+            f = _FEATS[int(rng.integers(0, len(_FEATS)))]
+            at = int(rng.integers(0, len(f) - 60))
+            seq = f[at:at + 60]
+            r = BamRecord(qname=qname, flag=flag, tid=0, pos=1, mtid=0,
+                          mpos=1, seq=seq, qual=bytes([35] * len(seq)))
+            r.tags["CB"] = ("Z", _CB.decode())
+            if ub is not None:
+                r.tags["UB"] = ("Z", ub.decode())
+            return r
+
+        write_bam(path, BamHeader(text="@HD\tVN:1.6\n",
+                                  references=[("chr1", 100000)]),
+                  make_records(rec))
+    return write
+
+
+def _pairs(rec, groups, prefix="g"):
+    """Two mate pairs of each UMI in ``groups``."""
+    return [rec(f"{prefix}{g}x{i}", flag, ub=umi)
+            for g, umi in enumerate(groups) for i in range(2)
+            for flag in (_FIRST, _R2)]
+
+
+def _irregular(rec):
+    # a paired-flagged orphan inside a populated run: the Python run
+    # fallback and its unpaired-qname warnings
+    recs = [rec(f"p{i}", flag) for i in range(2) for flag in (_FIRST, _R2)]
+    recs += [rec("orphan", _FIRST), rec("p9", _FIRST), rec("p9", _R2)]
+    return recs + _pairs(rec, [b"GGGGGGGGGG", b"TTTTTTTTTT"], "z")
+
+
+def _missing_umi(rec):
+    # the reference's fatal could-not-read-UMI record after two groups
+    return (_pairs(rec, [b"CCCCCCCCCC", b"GGGGGGGGGG"])
+            + [rec("bad", _FIRST, ub=None), rec("t0", _FIRST, ub=b"T" * 10),
+               rec("t0", _R2, ub=b"T" * 10)])
+
+
+def _leading_orphan(rec):
+    # an all-orphan FIRST run takes the producer's one free pass
+    return ([rec("lonely", _FIRST, ub=b"AACCGGTTAA")]
+            + _pairs(rec, [b"CCCCCCCCCC", b"GGGGGGGGGG"]))
+
+
+def _orphan_truncates(rec):
+    # an all-orphan run after a delivered group ends the stream
+    return (_pairs(rec, [b"CCCCCCCCCC", b"GGGGGGGGGG"])
+            + [rec("lonely", _FIRST, ub=b"AACCGGTTAA")]
+            + _pairs(rec, [b"TTTTTTTTTT"], "tail"))
+
+
+def _truncated_bam(path):
+    """A synthetic BAM whose decompressed stream ends mid-record, in a
+    clean BGZF container with its EOF marker."""
+    import gzip
+
+    from nimble_tpu.io.bam import _BGZF_EOF, _bgzf_block
+
+    _synthetic_bam(n_groups=3, pairs_per_group=2, read_len=64, seed=8)(path)
+    with gzip.open(path, "rb") as f:
+        payload = f.read()[:-7]
+    with open(path, "wb") as f:
+        for i in range(0, len(payload), 60000):
+            f.write(_bgzf_block(payload[i:i + 60000]))
+        f.write(_BGZF_EOF)
+
+
+_STREAM_KINDS = {
+    "golden": None,
+    "regular": _synthetic_bam(n_groups=7, pairs_per_group=3, read_len=64,
+                              unpaired_per_group=1, seed=5),
+    "small_batches": _synthetic_bam(n_groups=12, pairs_per_group=2,
+                                    read_len=64, seed=9),
+    "irregular_qnames": _records_bam(_irregular),
+    "missing_umi": _records_bam(_missing_umi),
+    "leading_orphan": _records_bam(_leading_orphan),
+    "orphan_truncates": _records_bam(_orphan_truncates),
+    "truncated": _truncated_bam,
+    "single_group": _synthetic_bam(n_groups=1, pairs_per_group=4,
+                                   read_len=64, seed=10),
+    "clip_124": _synthetic_bam(n_groups=4, pairs_per_group=2, read_len=111,
+                               pad_to_124=True, seed=11),
+}
+
+
+@pytest.mark.parametrize("kind,batch_records,paired", [
+    pytest.param("golden", 64, False, id="64-False"),
+    pytest.param("golden", 1000, False, id="1000-False"),
+    pytest.param("golden", 64, True, id="64-True"),
+    ("regular", 16384, False),
+    ("regular", 16384, True),
+    ("small_batches", 4, False),
+    ("irregular_qnames", 16384, False),
+    ("missing_umi", 16384, False),
+    ("leading_orphan", 16384, False),
+    ("orphan_truncates", 16384, False),
+    ("truncated", 16384, False),
+    ("single_group", 16384, False),
+    ("clip_124", 16384, False),
+])
+def test_bam_columnar_stream_matches(tmp_path, monkeypatch, kind,
+                                     batch_records, paired):
+    """The columnar group stream over the golden BAM and over each stream
+    kind the producer's rules were written for: every batch's columns,
+    group offsets, the stdout and stderr prints, the exception raised and
+    the final-group flag.  The JAX package's stream runs its default, one
+    scan-ahead thread."""
+    import contextlib
+    import io
+
+    for var in ("NIMBLE_BAM_PIPE", "NIMBLE_BAM_PREFETCH"):
+        monkeypatch.delenv(var, raising=False)
+    path = GOLDEN_BAM
+    if _STREAM_KINDS[kind] is not None:
+        path = str(tmp_path / f"{kind}.bam")
+        _STREAM_KINDS[kind](path)
+
     def run(side):
-        stream = side.module("io.bam_columnar").ColumnarGroupStream(
-            GOLDEN_BAM, paired)
-        cols = [{f.name: (getattr(b, f.name).offs, getattr(b, f.name).flat)
-                 if hasattr(getattr(b, f.name), "offs")
-                 else getattr(b, f.name) for f in dataclasses.fields(b)}
-                for b in stream.batches(batch_records)]
-        return cols, stream.final_open_group_pending
-    cols, _ = _same(run)
-    assert len(cols) >= 1
+        out, err = io.StringIO(), io.StringIO()
+        cols, exc = [], None
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            stream = side.module("io.bam_columnar").ColumnarGroupStream(
+                path, paired)
+            try:
+                for b in stream.batches(batch_records):
+                    cols.append({
+                        f.name: (getattr(b, f.name).offs,
+                                 getattr(b, f.name).flat)
+                        if hasattr(getattr(b, f.name), "offs")
+                        else getattr(b, f.name)
+                        for f in dataclasses.fields(b)})
+            except Exception as e:  # noqa: BLE001 — compared below
+                exc = (type(e).__name__, str(e))
+        return (cols, out.getvalue(), err.getvalue(), exc,
+                stream.final_open_group_pending, stream.read_counter)
+    cols, out, _, exc, _, _ = _same(run)
+    if kind == "truncated":
+        assert exc == ("EOFError", "truncated BAM stream")
+    elif kind == "missing_umi":
+        assert exc == ("ValueError", "Error -- Could not read UMI.")
+    else:
+        assert exc is None and len(cols) >= 1
+    if kind == "irregular_qnames":
+        assert "Warning: Unpaired qname!" in out
+
+
+def test_bam_columnar_stream_close_stops_its_scan_thread(tmp_path):
+    """Closing a stream after its first batch stops the ``bam-scan``
+    thread, which small chunks keep blocked on its full queue."""
+    import threading
+
+    path = str(tmp_path / "in.bam")
+    _synthetic_bam(n_groups=200, pairs_per_group=2, read_len=64, seed=12)(
+        path)
+    stream = PORT.module("io.bam_columnar").ColumnarGroupStream(path, False)
+    stream._CHUNK = 4096
+    it = stream.batches(4)
+    assert len(next(it)) > 0
+    thread = stream._prefetch_thread
+    assert thread is not None and thread.is_alive()
+    closer = threading.Thread(target=lambda: (it.close(), stream.close()))
+    closer.start()
+    closer.join(60)
+    assert not closer.is_alive() and not thread.is_alive()
+    assert not [t for t in threading.enumerate()
+                if t.name == "bam-scan" and t.is_alive()]
 
 
 @pytest.mark.parametrize("lib", ["basic.json", "mismatch.json",

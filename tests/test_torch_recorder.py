@@ -359,6 +359,39 @@ def test_a_traced_bam_pass_spans_every_thread_of_each_batch(
     assert err.count("[bam_fast wall] ") == 3
 
 
+def test_a_traced_bam_pass_waits_for_a_batch_outside_its_finish(
+        traced, tmp_path):
+    """``bam.queue_wait`` times only a consumer's wait for its next batch:
+    no ``bam.collect_wait`` or ``bam.finish`` span, nor any other, opens
+    inside it."""
+    from nimble_tpu_torch.config import LibraryChemistry
+    from nimble_tpu_torch.index.build import build_index
+    from nimble_tpu_torch.library import (
+        get_reference_sequence_data,
+        load_reference_library,
+    )
+    from nimble_tpu_torch.models.aligner import TorchAlignEngine
+    from nimble_tpu_torch.pipeline.bam_fast import process_fast
+    from nimble_tpu_torch.workload import write_bam_workload
+
+    wl = write_bam_workload(str(tmp_path / "wl"), n_features=6, feat_len=300,
+                            n_groups=200, seed=4)
+    cfg, ref = load_reference_library(wl.library,
+                                      LibraryChemistry.UNSTRANDED)
+    engine = TorchAlignEngine(build_index(get_reference_sequence_data(ref)[0]),
+                              cfg, device="cpu")
+    RECORDER.clear()
+    with contextlib.redirect_stdout(io.StringIO()):
+        process_fast(wl.inputs, [engine], [ref], [cfg],
+                     [str(tmp_path / "out.tsv.gz")], 2, False,
+                     batch_records=256)
+    by_id = {s.id: s for s in RECORDER.spans}
+    for name in ("bam.collect_wait", "bam.finish"):
+        assert len([s for s in RECORDER.spans if s.name == name]) >= 2
+    assert [s.name for s in RECORDER.spans if s.parent is not None
+            and by_id[s.parent].name == "bam.queue_wait"] == []
+
+
 def _entropy_spans(name, parent):
     """The spans ``name``, each inside a span ``parent`` on its thread."""
     by_id = {s.id: s for s in RECORDER.spans}
