@@ -257,6 +257,25 @@ class BucketedDispatch:
                 "host_rescue": host_rescue, "launches": launches,
                 "stream": self._stream()}
 
+    def fetch_full(self, state) -> list:
+        """Wait for a :meth:`full_dispatch` and do each launch's host work
+        that no library changes, once: the fetch, the distinct rows'
+        lengths (kept in the packed rows) and the entropy gate (span
+        ``bam.collect.entropy``).  Returns ``(sel, m, raw, inv, sub_lens,
+        low_ent)`` a launch, ``raw`` the (..., m, 3) result."""
+        self._wait(state)
+        fetched = []
+        for sel, m, out_dev, buf, bucket, inv in state["launches"]:
+            raw = out_dev.cpu().numpy()
+            nb = (bucket + 3) // 4
+            # distinct-row lengths live in the packed rows themselves
+            sub_lens = (buf[:, nb].astype(np.int32)
+                        | (buf[:, nb + 1].astype(np.int32) << 8))
+            with span("bam.collect.entropy", items=m):
+                low_ent = ~entropy_pass_packed(buf, m, sub_lens, nb)
+            fetched.append((sel, m, raw, inv, sub_lens, low_ent))
+        return fetched
+
 
 class BucketedEngine(BucketedDispatch):
     """The host side of an engine over a bucketed device pass: the exact
@@ -320,8 +339,13 @@ class BucketedEngine(BucketedDispatch):
         host-rescue rows first, then to each launch's overflow rows, as in
         ``DeviceAlignEngine.full_collect``.
         """
+        return self.full_collect_library(state, self.fetch_full(state))
+
+    def full_collect_library(self, state, fetched):
+        """:meth:`full_collect` over the launches :meth:`fetch_full`
+        fetched, each ``raw`` this library's (m, 3) result: what a stacked
+        pass runs once a library."""
         n = state["n"]
-        self._wait(state)
         mat, lens, act = state["mat"], state["lens"], state["active"]
         reason = np.full(n, -2, dtype=np.int16)
         norm = np.zeros(n, dtype=np.float64)
@@ -356,21 +380,14 @@ class BucketedEngine(BucketedDispatch):
         for i in rescue:
             host_align(i)
 
-        for sel, m, out_dev, buf, bucket, inv in state["launches"]:
-            out = unpack_full_packed(out_dev.cpu().numpy())
-            nb = (bucket + 3) // 4
-            # distinct-row lengths live in the packed rows themselves
-            sub_lens = (buf[:, nb].astype(np.int32)
-                        | (buf[:, nb + 1].astype(np.int32) << 8))
-            with span("bam.collect.entropy", items=m):
-                low_ent = ~entropy_pass_packed(buf, m, sub_lens, nb)
+        for sel, m, raw, inv, sub_lens, low_ent in fetched:
+            out = unpack_full_packed(raw)
             ha = out["has_anchor"]
             ov = out["overflow"] & ~low_ent
             sc = out["score"]
             mm = out["mismatches"]
             nrm = sc / sub_lens  # f64, the reference's normalized score
             keys = (out["astart"] << self.c_max) | out["mask"]
-            counts = self._decode_counts(keys, ha)
 
             r = np.full(m, -1, dtype=np.int16)
             nr = np.zeros(m, dtype=np.float64)
@@ -382,7 +399,8 @@ class BucketedEngine(BucketedDispatch):
             r[live & ~ha] = code[FilterReason.NO_MATCH]
             cand = live & ha
 
-            # (fails, reason, reports its scores), in pseudoalign's order
+            # (fails, reason, reports its scores), in pseudoalign's order;
+            # the multiple-match gate (None) decodes the rows still in cand
             gates = []
             if cfg.discard_nonzero_mismatch:
                 gates.append((mm != 0, FilterReason.DISCARDED_NONZERO_MISMATCH,
@@ -391,11 +409,13 @@ class BucketedEngine(BucketedDispatch):
                             & (nrm >= cfg.score_percent)),
                           FilterReason.SCORE_BELOW_THRESHOLD, True))
             if cfg.discard_multiple_matches:
-                gates.append((counts > 1,
-                              FilterReason.DISCARDED_MULTIPLE_MATCH, True))
+                gates.append((None, FilterReason.DISCARDED_MULTIPLE_MATCH,
+                              True))
             gates.append((mm > cfg.num_mismatches,
                           FilterReason.ABOVE_MISMATCH_THRESHOLD, True))
             for fails, why, report in gates:
+                if fails is None:
+                    fails = self.multiple_matches(keys, cand)
                 hit = cand & fails
                 r[hit] = code[why]
                 if report:
@@ -420,6 +440,19 @@ class BucketedEngine(BucketedDispatch):
 
         return {"reason": reason, "norm": norm, "score": score,
                 "eq_key": eq_key, "rescued": rescued}
+
+    def multiple_matches(self, keys: np.ndarray, cand: np.ndarray
+                         ) -> np.ndarray:
+        """The multiple-match gate: the rows of ``cand`` whose combo key
+        decodes to more than one distinct eq row.  Only those rows are
+        decoded (counter ``bam.rows_decoded``); a candidate has an anchor,
+        so its key is a device combo."""
+        rows = np.flatnonzero(cand)
+        count("bam.rows_decoded", len(rows))
+        fails = np.zeros(len(keys), dtype=bool)
+        fails[rows] = self._decode_counts(
+            keys[rows], np.ones(len(rows), dtype=bool)) > 1
+        return fails
 
     # --- AlignEngine interface (core.calls, pipeline.bam_pipeline) -------
 

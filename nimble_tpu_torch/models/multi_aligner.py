@@ -179,18 +179,16 @@ class TorchMultiLibraryDispatcher(BucketedDispatch):
         return super().full_dispatch(mat, lens, active)
 
     def full_collect(self, state) -> List[dict]:
-        """One fetch per bucket; each library's results through its own
-        engine's exact host gates (``TorchAlignEngine.full_collect`` on
-        that library's slice), each the span ``bam.collect.library``."""
-        self._wait(state)
-        raws = [launch[2].cpu() for launch in state["launches"]]
-        rows = sum(launch[1] for launch in state["launches"])
+        """One fetch and one entropy gate per launch (``fetch_full``);
+        each library's results through its own engine's exact host gates
+        (``full_collect_library`` on that library's slice), each the span
+        ``bam.collect.library``."""
+        fetched = self.fetch_full(state)
+        rows = sum(f[1] for f in fetched)
         results = []
         for li, engine in enumerate(self.engines):
-            lib_state = dict(state, stream=None, launches=[
-                (sel, m, raw[li], buf, bucket, inv)
-                for (sel, m, _out, buf, bucket, inv), raw
-                in zip(state["launches"], raws)])
+            lib = [(sel, m, raw[li], inv, sub_lens, low_ent)
+                   for sel, m, raw, inv, sub_lens, low_ent in fetched]
             with span("bam.collect.library", items=rows):
-                results.append(engine.full_collect(lib_state))
+                results.append(engine.full_collect_library(state, lib))
         return results

@@ -696,7 +696,8 @@ def process_fast(
 
 # a traced pass's counters, printed as its ``[bam_fast counts]`` line
 COUNTERS = ("bam.records_in", "bam.rows_launched", "bam.rescued",
-            "bam.rows_written", "bam.rows_stacked", "entropy.fallback_rows")
+            "bam.rows_written", "bam.rows_stacked", "entropy.fallback_rows",
+            "bam.rows_decoded")
 
 
 def _process_fast(input_files, engines, references, aligner_configs,

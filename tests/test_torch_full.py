@@ -9,7 +9,9 @@ postings than ``c_max``, and the zero pad rows of a 128-row tile.
 ``TorchAlignEngine.full_collect(full_dispatch(...))`` must return the same
 dict as ``DeviceAlignEngine``'s on batches with duplicates, trimmed rows
 whose codes run past their length, short, inactive and over-long reads, and
-postings overflow (host rescue ids included).  ``dedupe_packed_rows`` must
+postings overflow (host rescue ids included), and with the multiple-match
+gate on where it rejects rows; that gate decodes only its candidates, as
+the whole launch's ``_decode_counts`` would.  ``dedupe_packed_rows`` must
 return the JAX engine's (first, inv).  Exact equality throughout.
 """
 
@@ -25,9 +27,11 @@ from nimble_tpu.models import aligner as jax_aligner
 from nimble_tpu.ops import engine_fast as ef
 from nimble_tpu.ops.device_index import build_bucketed_index, hash_kmer, kmer_fp
 from nimble_tpu.utils.dna import encode_bases
+from nimble_tpu_torch.config import FILTER_REASON_CODE, FilterReason
 from nimble_tpu_torch.models.aligner import TorchAlignEngine, dedupe_packed_rows
 from nimble_tpu_torch.ops.device_tables import tables_from_bucketed_index
 from nimble_tpu_torch.ops.full import probe_walk_full, unpack_full_packed
+from nimble_tpu_torch.utils.metrics import RECORDER
 
 from test_torch_compact import K, _cfg, _key_halves, _library, _packed, _reads
 from torch_sides import PORT
@@ -196,6 +200,104 @@ def test_engine_full_interface_matches_jax(walk, with_overflow):
     assert got["rescued"] == want["rescued"]
     assert len(got["rescued"]) >= (3 if with_overflow else 2)
     assert (got["reason"] == -1).sum() > 40
+
+
+def _reached_the_gate(state, result):
+    """Distinct rows of a full pass that reach the multiple-match gate,
+    from a result with the gate off: a device result (no overflow) that
+    passed, or failed only the mismatch gate after it."""
+    code = FILTER_REASON_CODE
+    after = [-1, code[FilterReason.ABOVE_MISMATCH_THRESHOLD]]
+    n = 0
+    for sel, _m, out_dev, _buf, _bucket, inv in state["launches"]:
+        overflow = unpack_full_packed(out_dev.cpu().numpy())["overflow"]
+        rep = sel[np.unique(inv, return_index=True)[1]]
+        n += np.count_nonzero(np.isin(result["reason"][rep], after)
+                              & ~overflow)
+    return n
+
+
+@pytest.mark.parametrize("walk", ["fused", "double"])
+@pytest.mark.parametrize("c_max", [4, 8])
+def test_engine_multiple_match_gate_rejects_rows_and_decodes_only_them(
+        walk, c_max, monkeypatch):
+    """With ``discard_multiple_matches`` on, reads in a segment three
+    features share fail the gate, as in the JAX engine; only the rows
+    reaching the gate are decoded (``bam.rows_decoded``); the gate changes
+    nothing else of the gate-off result."""
+    rng = np.random.default_rng(41)
+    shared = "".join(rng.choice(list("ACGT"), size=80))
+    doubled, index = _library(rng, n_feats=6, shared=shared, n_shared=3)
+    mat, lens, active = _batch(rng, doubled, shared)
+    code = FILTER_REASON_CODE[FilterReason.DISCARDED_MULTIPLE_MATCH]
+    want_eng = jax_aligner.DeviceAlignEngine(
+        index, _cfg(discard_multiple_matches=True), c_max=c_max,
+        use_pallas_walk="fused" if walk == "fused" else True)
+    with pltpu.force_tpu_interpret_mode():
+        want = want_eng.full_collect(want_eng.full_dispatch(mat, lens, active))
+    port_index = PORT.build_index(doubled)
+    got = {}
+    monkeypatch.setenv("NIMBLE_TIMING", "1")
+    for on in (False, True):
+        eng = TorchAlignEngine(
+            port_index,
+            _cfg(PORT.AlignFilterConfig, discard_multiple_matches=on),
+            device="cpu", walk=walk, c_max=c_max, launch_batch=64)
+        RECORDER.clear()
+        state = eng.full_dispatch(mat, lens, active)
+        with RECORDER.traced_pass("bam.pass"):
+            got[on] = eng.full_collect(state)
+        decoded = RECORDER.counters.get("bam.rows_decoded", 0)
+        assert decoded == (_reached_the_gate(state, got[False]) if on else 0)
+    for key in ("reason", "norm", "score", "eq_key"):
+        assert got[True][key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(got[True][key], want[key], err_msg=key)
+    assert got[True]["rescued"] == want["rescued"]
+    hit = got[True]["reason"] == code
+    assert hit.sum() >= 8 and decoded > hit.sum()
+    assert set(got[False]["reason"][hit]) <= {
+        -1, FILTER_REASON_CODE[FilterReason.ABOVE_MISMATCH_THRESHOLD]}
+    assert (got[False]["eq_key"][hit] >= 0).all()
+    for key in ("reason", "norm", "score", "eq_key"):
+        np.testing.assert_array_equal(got[True][key][~hit],
+                                      got[False][key][~hit], err_msg=key)
+    assert got[True]["rescued"] == got[False]["rescued"]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("c_max", [2, 4, 8, 16])
+def test_the_gate_decodes_its_candidates_as_the_whole_decode(seed, c_max):
+    """For random combo keys over a library's postings, the multiple-match
+    gate, which decodes only its candidates, fails exactly the candidates
+    whose whole-launch ``_decode_counts`` is above 1, and no other row; the
+    keys include windows that repeat a feature row, so a distinct count
+    falls below the mask's popcount."""
+    rng = np.random.default_rng(seed)
+    doubled, _index = _library(rng, n_feats=3, feat_len=120)
+    eng = TorchAlignEngine(PORT.build_index(doubled),
+                           _cfg(PORT.AlignFilterConfig,
+                                discard_multiple_matches=True),
+                           device="cpu", c_max=c_max)
+    n_post = len(eng.bidx.postings_row)
+    m = 3000
+    astart = rng.integers(0, n_post, m)
+    astart[:50] = n_post - 1 - np.arange(50) % c_max  # windows at the end
+    mask = rng.integers(1, 1 << c_max, m)
+    keys = (astart.astype(np.int64) << c_max) | mask
+    ha = rng.random(m) < 0.8
+    keys[~ha] = rng.integers(-5, 1 << 40, np.count_nonzero(~ha))
+    cand = ha & (rng.random(m) < 0.7)
+    whole = eng._decode_counts(keys, ha)
+    popcount = np.array([bin(int(x)).count("1") for x in mask])
+    assert (whole[ha] < popcount[ha]).any()
+    assert ((whole[cand] > 1).any() and (whole[cand] == 1).any())
+    rows = np.flatnonzero(cand)
+    np.testing.assert_array_equal(
+        eng._decode_counts(keys[rows], np.ones(len(rows), dtype=bool)),
+        whole[rows])
+    fails = eng.multiple_matches(keys, cand)
+    assert fails.dtype == bool and fails.shape == (m,)
+    np.testing.assert_array_equal(fails, cand & (whole > 1))
 
 
 def test_engine_refuses_unknown_walk_and_wide_c_max():

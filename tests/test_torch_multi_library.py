@@ -11,7 +11,9 @@
   flags), planted fingerprint collisions, postings overflow, buckets
   64 / 92 / 128.
 - ``TorchMultiLibraryDispatcher``'s ``collect`` / ``full_collect`` must equal
-  the JAX dispatcher's, and each library's single ``TorchAlignEngine``.
+  the JAX dispatcher's, and each library's single ``TorchAlignEngine``;
+  ``full_collect`` also with libraries that differ on the multiple-match
+  gate, one entropy gate a launch and only the gate's rows decoded.
 - The port's ``pipeline.fastq_pipeline.process`` and
   ``pipeline.bam_fast.process_fast`` must write the bytes of the JAX
   pipelines with ``DeviceAlignEngine`` s (after
@@ -38,12 +40,14 @@ from nimble_tpu.models.multi_aligner import MultiLibraryDispatcher
 from nimble_tpu.ops import engine_fast as ef
 from nimble_tpu.ops.device_index import hash_kmer, kmer_fp
 from nimble_tpu.utils.dna import encode_bases, revcomp
+from nimble_tpu_torch.config import FILTER_REASON_CODE, FilterReason
 from nimble_tpu_torch.models import multi_aligner
 from nimble_tpu_torch.models.aligner import TorchAlignEngine
 from nimble_tpu_torch.models.multi_aligner import TorchMultiLibraryDispatcher
 from nimble_tpu_torch.ops.compact import probe_walk_filter_multi
 from nimble_tpu_torch.ops.device_tables import stack_tables
 from nimble_tpu_torch.ops.full import probe_walk_full_multi
+from nimble_tpu_torch.utils.metrics import RECORDER
 
 from conftest import library_path, reads_path
 from test_torch_bam import _trimmed_duplicate_bam, ensure_native_libraries
@@ -296,14 +300,55 @@ def test_dispatcher_collect_matches_jax_and_single_engines(walk):
     assert got[0]["needs_host"].any()  # postings overflow in library 0
 
 
-@pytest.mark.parametrize("walk", ["fused", "double"])
-def test_dispatcher_full_collect_matches_jax_and_single_engines(walk):
+def _rows_at_the_multiple_match_gate(state, result, li):
+    """Distinct rows of a stacked full pass that reach library ``li``'s
+    multiple-match gate (on): a device result (no overflow) whose reason
+    is that gate's or a later step's."""
+    code = FILTER_REASON_CODE
+    after = [-1, code[FilterReason.DISCARDED_MULTIPLE_MATCH],
+             code[FilterReason.ABOVE_MISMATCH_THRESHOLD]]
+    n = 0
+    for sel, _m, out_dev, _buf, _bucket, inv in state["launches"]:
+        overflow = (out_dev.cpu().numpy()[li][:, 1] & (1 << 17)) != 0
+        rep = sel[np.unique(inv, return_index=True)[1]]
+        n += np.count_nonzero(np.isin(result["reason"][rep], after)
+                              & ~overflow)
+    return n
+
+
+# (walk, discard_multiple_matches of libraries 0 and 1); the first two
+# cases keep the test's original ids and inputs
+_FULL_COLLECT_CASES = [("fused", (False, False)), ("double", (False, False)),
+                       ("fused", (False, True)), ("double", (False, True)),
+                       ("fused", (True, True)), ("double", (True, True))]
+
+
+@pytest.mark.parametrize(
+    "walk,multiple", _FULL_COLLECT_CASES,
+    ids=["fused", "double", "fused-off-on", "double-off-on", "fused-on-on",
+         "double-on-on"])
+def test_dispatcher_full_collect_matches_jax_and_single_engines(
+        walk, multiple, monkeypatch):
+    """Each library equals the JAX dispatcher's and its engine alone, key
+    for key, dtype for dtype; the entropy gate opens once a launch; only
+    the rows reaching a library's multiple-match gate are decoded."""
     rng = np.random.default_rng(12)
     shared = "".join(rng.choice(list("ACGT"), size=80))
-    libs = [_lib(14, 8, 260, shared=shared, n_shared=8, score_percent=0.25),
-            _lib(15, 20, 400, num_mismatches=0),
+    gated = any(multiple)
+    # a gated case plants a segment library 1 shares too, and reads in it;
+    # the (off, off) cases keep the original libraries and batch
+    planted = dict(shared=shared[:60], n_shared=3) if gated else {}
+    libs = [_lib(14, 8, 260, shared=shared, n_shared=8, score_percent=0.25,
+                 discard_multiple_matches=multiple[0]),
+            _lib(15, 20, 400, num_mismatches=0,
+                 discard_multiple_matches=multiple[1], **planted),
             _lib(16, 3, 220, discard_nonzero_mismatch=True)]
     mat, lens = _batch(rng, libs)
+    if gated:  # reads in 8 rows of library 0 and 3 of library 1
+        for i in range(11):
+            mat[i] = 0
+            mat[i, :50] = encode_bases(shared[i : i + 50])
+            lens[i] = 50
     active = np.ones(len(lens), dtype=bool)
     active[3::17] = False
     wide = np.zeros((len(lens), 1100), dtype=np.int8)
@@ -311,7 +356,22 @@ def test_dispatcher_full_collect_matches_jax_and_single_engines(walk):
     wide[9] = encode_bases(libs[0][3][0] * 6)[:1100]  # host rescue
     lens[9] = 1100
     multi, engines, jax_multi = _dispatchers(libs, walk)
-    got = multi.full_collect(multi.full_dispatch(wide, lens, active))
+    monkeypatch.setenv("NIMBLE_TIMING", "1")
+    RECORDER.clear()
+    state = multi.full_dispatch(wide, lens, active)
+    with RECORDER.traced_pass("bam.pass"):
+        got = multi.full_collect(state)
+    counters = dict(RECORDER.counters)
+    entropy = [s for s in RECORDER.spans if s.name == "bam.collect.entropy"]
+    assert len(entropy) == len(state["launches"]) >= 2
+    assert sum(s.items for s in entropy) == sum(
+        launch[1] for launch in state["launches"])
+    decoded = sum(_rows_at_the_multiple_match_gate(state, got[li], li)
+                  for li in (0, 1) if multiple[li])
+    assert counters.get("bam.rows_decoded", 0) == decoded
+    assert (decoded > 0) == gated
+    multiple_code = FILTER_REASON_CODE[FilterReason.DISCARDED_MULTIPLE_MATCH]
+    assert (got[1]["reason"] == multiple_code).any() == multiple[1]
     want = jax_multi.full_collect(jax_multi.full_dispatch(wide, lens, active))
     for li, (g, w, e) in enumerate(zip(got, want, engines)):
         single = e.full_collect(e.full_dispatch(wide, lens, active))

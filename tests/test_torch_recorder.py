@@ -456,7 +456,61 @@ def test_a_traced_bam_pass_spans_the_entropy_gate_of_each_launch(
     assert sum(s.items for s in spans) == RECORDER.counters[
         "bam.rows_launched"] > 0
     assert RECORDER.counters.get("entropy.fallback_rows", 0) == 0
-    assert "rows-stacked 0 fallback-rows 0\n" in err
+    assert "rows-stacked 0 fallback-rows 0 rows-decoded 0\n" in err
+
+
+@pytest.mark.parametrize("multiple", [False, True])
+def test_a_traced_stacked_bam_pass_gates_entropy_once_a_launch(
+        traced, tmp_path, capsys, multiple):
+    """Two libraries in one stacked pass: ``bam.collect.entropy`` opens
+    in ``bam.collect`` once a launch, outside each library's
+    ``bam.collect.library``, so its items sum to ``bam.rows_launched``;
+    ``bam.rows_decoded`` reads 0 unless a library turns its
+    multiple-match gate on."""
+    import dataclasses
+
+    from nimble_tpu_torch.config import LibraryChemistry
+    from nimble_tpu_torch.index.build import build_index
+    from nimble_tpu_torch.library import (
+        get_reference_sequence_data,
+        load_reference_library,
+    )
+    from nimble_tpu_torch.models.aligner import TorchAlignEngine
+    from nimble_tpu_torch.pipeline.bam_fast import process_fast
+    from nimble_tpu_torch.workload import write_multi_bam_workload
+
+    wl = write_multi_bam_workload(str(tmp_path / "wl"),
+                                  libraries=[(6, 300), (4, 300)],
+                                  n_groups=300, seed=6)
+    engines, refs, cfgs, outs = [], [], [], []
+    for i, path in enumerate(wl.libraries):
+        cfg, ref = load_reference_library(path, LibraryChemistry.UNSTRANDED)
+        if i == 1:
+            cfg = dataclasses.replace(cfg, discard_multiple_matches=multiple)
+        engines.append(TorchAlignEngine(
+            build_index(get_reference_sequence_data(ref)[0]), cfg,
+            device="cpu"))
+        refs.append(ref)
+        cfgs.append(cfg)
+        outs.append(str(tmp_path / f"out{i}.tsv.gz"))
+    RECORDER.clear()
+    with contextlib.redirect_stdout(io.StringIO()):
+        process_fast(wl.inputs, engines, refs, cfgs, outs, 2, False,
+                     batch_records=512)
+    err = capsys.readouterr().err
+    spans = _entropy_spans("bam.collect.entropy", "bam.collect")
+    counts = RECORDER.counters
+    assert len(spans) >= 2
+    assert sum(s.items for s in spans) == counts["bam.rows_launched"] \
+        == counts["bam.rows_stacked"] > 0
+    collects = [s for s in RECORDER.spans if s.name == "bam.collect"]
+    libraries = [s for s in RECORDER.spans if s.name == "bam.collect.library"]
+    assert len(libraries) == 2 * len(collects)
+    decoded = counts.get("bam.rows_decoded", 0)
+    assert (decoded > 0) == multiple
+    assert decoded <= counts["bam.rows_launched"]
+    assert (f"rows-stacked {counts['bam.rows_stacked']} fallback-rows 0 "
+            f"rows-decoded {decoded}\n") in err
 
 
 def test_the_pass_annotations_tie_the_recorder_to_a_profiler_trace(
