@@ -344,7 +344,8 @@ class FastCounter:
                 # latency (~30-45 ms for each upload/launch/fetch) dominates
                 # the paired path, so halving the transaction count is a
                 # near-2x wall win; results split back by row in process().
-                launch_args = stack_pair(mat, lens, mate_mat, mate_lens)
+                with span("fastq.stack_pair", items=2 * mat.shape[0]):
+                    launch_args = stack_pair(mat, lens, mate_mat, mate_lens)
                 paired_stacked = True
             else:
                 launch_args = (mat, lens)
@@ -486,6 +487,8 @@ class FastCounter:
         # score-map admission + pair validity, vectorized over combos
         nonempty1 = eq_rows1[:, 0] != self._EQ_BIG
         nonempty2 = eq_rows2[:, 0] != self._EQ_BIG
+        for ci, (e1, e2) in rescue_eqs.items():
+            nonempty1[ci], nonempty2[ci] = bool(e1), bool(e2)
         keep_combo = nonempty1 | nonempty2
         if config.require_valid_pair and mate_mat is not None:
             keep_combo &= nonempty1 & nonempty2 & (eq_rows1 == eq_rows2).all(axis=1)
@@ -494,6 +497,10 @@ class FastCounter:
             if keep and config.require_valid_pair and mate_mat is not None:
                 keep = bool(e1) and bool(e2) and sorted(e1) == sorted(e2)
             keep_combo[ci] = keep
+        if mate_mat is not None:
+            # pairs with a call that the pair check drops
+            count("fastq.pairs_invalid", np.count_nonzero(
+                ((nonempty1 | nonempty2) & ~keep_combo)[inverse]))
 
         # content key of a combo = the padded eq-row bytes (different
         # anchors, same eq class -> one combo entry)
@@ -547,6 +554,12 @@ class FastCounter:
                     continue
                 self._seen.add(key)
                 counts_per_combo[kept_inverse[j]] += 1
+        if mate_mat is not None:
+            # the pairs counted, by the mates with a call
+            count("fastq.pairs_both",
+                  counts_per_combo[nonempty1 & nonempty2].sum())
+            count("fastq.pairs_one_mate",
+                  counts_per_combo[nonempty1 ^ nonempty2].sum())
         self._bump_combos(
             combos, counts_per_combo, eq_rows1, eq_rows2, content_mat,
             rescue_eqs,

@@ -3,9 +3,12 @@
 Parity target: `src/process/fastq.rs:7-30` — for each reference library,
 align the input file(s) (second file supplies mates) and append a
 ``feature\tscore`` TSV per library.  With :class:`TorchAlignEngine`
-engines the fast branch streams chunks: with more than one engine, every
-chunk of the input is parsed once, deduped once, uploaded once and aligned
-against all libraries in one device pass per slice
+engines the fast branch streams chunks, each input file parsed ahead on a
+thread of its own (``fastq-parse``, and ``fastq-parse-r2`` for the mates'
+file), a pair's R1 and R2 rows sent to the card in one stacked launch.
+With more than one engine, every chunk of the input is parsed once,
+deduped once, uploaded once and aligned against all libraries in one
+device pass per slice
 (``models.multi_aligner.TorchMultiLibraryDispatcher``); each library's
 ``FastCounter`` then takes its slice of the shared result.  Engines that
 cannot share a pass (a ``ValueError`` from the dispatcher: other geometry,
@@ -47,9 +50,12 @@ DEFAULT_CHUNK_READS = 1 << 17
 # A/B measured 3 best; 1 left the device idle during every count)
 _DEPTH = 3
 # a traced pass's counters, printed as its ``[fastq counts]`` line
+# (``fastq.reads_in`` counts the reads of both files on paired input; the
+# ``fastq.pairs_*`` counters stay 0 on single-end input)
 COUNTERS = ("fastq.reads_in", "fastq.rows_launched", "fastq.rescued",
             "fastq.bytes_in", "fastq.parse.buffer_grows",
-            "fastq.rows_stacked", "entropy.fallback_rows")
+            "fastq.rows_stacked", "entropy.fallback_rows", "fastq.pairs_in",
+            "fastq.pairs_both", "fastq.pairs_one_mate", "fastq.pairs_invalid")
 
 def _drain_pending(pending, multi, chunk=None) -> None:
     """Process buffered chunk handles; with the multi-library dispatcher the
@@ -174,10 +180,11 @@ def _dispatch_multi(multi, fetcher, mat, lens, mate_mat, mate_lens,
             # one device transaction for all libraries (stacked R1+R2 when
             # paired, split back in drain): dispatched here, collected on
             # the fetcher
-            launch_args = (
-                stack_pair(mat, lens, mate_mat, mate_lens)
-                if mate_mat is not None else (mat, lens)
-            )
+            if mate_mat is not None:
+                with span("fastq.stack_pair", items=2 * mat.shape[0]):
+                    launch_args = stack_pair(mat, lens, mate_mat, mate_lens)
+            else:
+                launch_args = (mat, lens)
             st1 = submit_transaction(
                 fetcher, multi.dispatch, multi.collect, launch_args,
                 "fastq.collect")
@@ -186,14 +193,16 @@ def _dispatch_multi(multi, fetcher, mat, lens, mate_mat, mate_lens,
     return (mat, lens, mate_mat, mate_lens, st1, prededuped)
 
 
-def _prefetch_iter(it, depth: int = 2):
-    """Run an iterator one-or-two items ahead on its own thread.
+def _prefetch_iter(it, name: str, depth: int = 2):
+    """Run an iterator one-or-two items ahead on its own thread, ``name``.
 
     The FASTQ chunk parse (one read, then the C++ scan and matrix fill,
     both GIL-releasing) would otherwise serialize with the count stage on
-    the main thread.  A single ordered worker hides it behind the device
-    stage.  Exceptions re-raise at the same consume point.  Each item's
-    parse is the span ``fastq.parse``, its chunk the item's index.
+    the main thread.  A single ordered worker per input file hides it
+    behind the device stage: ``fastq-parse`` for R1, ``fastq-parse-r2``
+    for R2.  Exceptions re-raise at the same consume point.  Each item's
+    parse is the span ``fastq.parse`` on either thread, its chunk the
+    item's index.
     """
     import queue as _queue
     import threading as _threading
@@ -217,7 +226,7 @@ def _prefetch_iter(it, depth: int = 2):
             return
         q.put(("end", _END))
 
-    t = _threading.Thread(target=worker, name="fastq-parse", daemon=True)
+    t = _threading.Thread(target=worker, name=name, daemon=True)
     t.start()
     try:
         while True:
@@ -245,17 +254,19 @@ def _run_fast_loop(r1_chunks, r2_chunks, counters, multi, fetcher,
                    dispatcher, pending) -> None:
     mark = RECORDER.mark()
     in_flight: List = []
-    r1_chunks = _prefetch_iter(r1_chunks)
+    r1_chunks = _prefetch_iter(r1_chunks, "fastq-parse")
     if r2_chunks is not None:
-        r2_chunks = _prefetch_iter(r2_chunks)
+        r2_chunks = _prefetch_iter(r2_chunks, "fastq-parse-r2")
     for chunk in itertools.count():
         with span("fastq.parse_wait", chunk=chunk, wait=True):
             nxt = next(r1_chunks, None)
             if nxt is not None and r2_chunks is not None:
-                try:
-                    mate_mat, mate_lens = next(r2_chunks)
-                except StopIteration:
-                    mate_mat, mate_lens = None, None
+                # the wait for R2's chunk once R1's has come
+                with span("fastq.parse_wait.mate", wait=True):
+                    try:
+                        mate_mat, mate_lens = next(r2_chunks)
+                    except StopIteration:
+                        mate_mat, mate_lens = None, None
         if nxt is None:
             break
         mat, lens = nxt
@@ -265,9 +276,11 @@ def _run_fast_loop(r1_chunks, r2_chunks, counters, multi, fetcher,
                     "Error -- read and reverse read files do not have "
                     "matching lengths: "
                 )
+            count("fastq.pairs_in", mat.shape[0])
+            count("fastq.reads_in", 2 * mat.shape[0])
         else:
             mate_mat, mate_lens = None, None
-        count("fastq.reads_in", mat.shape[0])
+            count("fastq.reads_in", mat.shape[0])
         if multi is not None:
             # pipelined dispatch: dedupe + pack + upload run on the
             # dispatcher thread, overlapping the previous chunk's

@@ -203,6 +203,9 @@ def test_build_seconds_is_a_view_of_the_kernel_spans():
 
 # --- the pipelines, traced ---------------------------------------------------
 
+# the end of a single-end pass's ``[fastq counts]`` line: no pair counted
+SINGLE_END_PAIRS = "pairs-in 0 pairs-both 0 pairs-one-mate 0 pairs-invalid 0"
+
 
 @pytest.fixture(scope="module")
 def fastq_job(tmp_path_factory):
@@ -288,7 +291,7 @@ def test_a_traced_fastq_pass_counts_the_bytes_it_parsed(
     size = os.path.getsize(fastq_job[0].inputs[0])
     assert RECORDER.counters["fastq.bytes_in"] == size
     assert (f"rescued 0 bytes-in {size} parse.buffer-grows 0 "
-            f"rows-stacked 0 fallback-rows 0\n") in err
+            f"rows-stacked 0 fallback-rows 0 {SINGLE_END_PAIRS}\n") in err
 
 
 def test_an_untraced_fastq_pass_records_nothing(fastq_job, monkeypatch,
@@ -418,7 +421,7 @@ def test_a_traced_fastq_pass_spans_the_entropy_gate_of_each_launch(
     assert sum(s.items for s in spans) == RECORDER.counters[
         "fastq.rows_launched"]
     assert RECORDER.counters.get("entropy.fallback_rows", 0) == 0
-    assert "fallback-rows 0\n" in err
+    assert f"fallback-rows 0 {SINGLE_END_PAIRS}\n" in err
 
 
 def test_a_traced_bam_pass_spans_the_entropy_gate_of_each_launch(
