@@ -24,6 +24,7 @@ per-library ``call`` path.
 from __future__ import annotations
 
 import itertools
+import queue
 import sys
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -51,11 +52,15 @@ DEFAULT_CHUNK_READS = 1 << 17
 _DEPTH = 3
 # a traced pass's counters, printed as its ``[fastq counts]`` line
 # (``fastq.reads_in`` counts the reads of both files on paired input; the
-# ``fastq.pairs_*`` counters stay 0 on single-end input)
+# ``fastq.pairs_*`` counters and ``fastq.mate_ready``, the chunks whose R2
+# chunk had been parsed when R1's came, stay 0 on single-end input)
 COUNTERS = ("fastq.reads_in", "fastq.rows_launched", "fastq.rescued",
             "fastq.bytes_in", "fastq.parse.buffer_grows",
             "fastq.rows_stacked", "entropy.fallback_rows", "fastq.pairs_in",
-            "fastq.pairs_both", "fastq.pairs_one_mate", "fastq.pairs_invalid")
+            "fastq.pairs_both", "fastq.pairs_one_mate", "fastq.pairs_invalid",
+            "fastq.mate_ready")
+# the end of a prefetcher's iterator
+_END = object()
 
 def _drain_pending(pending, multi, chunk=None) -> None:
     """Process buffered chunk handles; with the multi-library dispatcher the
@@ -193,114 +198,140 @@ def _dispatch_multi(multi, fetcher, mat, lens, mate_mat, mate_lens,
     return (mat, lens, mate_mat, mate_lens, st1, prededuped)
 
 
-def _prefetch_iter(it, name: str, depth: int = 2):
-    """Run an iterator one-or-two items ahead on its own thread, ``name``.
+class _Prefetcher:
+    """Run an iterator up to ``depth`` items ahead on its own thread,
+    ``name``, started here, when the pass starts.
 
     The FASTQ chunk parse (one read, then the C++ scan and matrix fill,
     both GIL-releasing) would otherwise serialize with the count stage on
     the main thread.  A single ordered worker per input file hides it
     behind the device stage: ``fastq-parse`` for R1, ``fastq-parse-r2``
-    for R2.  Exceptions re-raise at the same consume point.  Each item's
-    parse is the span ``fastq.parse`` on either thread, its chunk the
-    item's index.
+    for R2.  Both start before the loop first asks for a chunk, so the
+    two files' first chunks parse side by side.  Exceptions re-raise at
+    the same consume point.  Each item's parse is the span
+    ``fastq.parse`` on either thread, its chunk the item's index.
+    :meth:`close` stops the worker and closes ``it``.
     """
-    import queue as _queue
-    import threading as _threading
 
-    q: "_queue.Queue" = _queue.Queue(maxsize=depth)
-    _END = object()
-    stop = _threading.Event()
+    def __init__(self, it, name: str, depth: int = 2):
+        self._queue: "queue.Queue" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._done = False
+        self._thread = threading.Thread(target=self._work, args=(it,),
+                                        name=name, daemon=True)
+        self._thread.start()
 
-    def worker() -> None:
+    def _work(self, it) -> None:
         try:
             for chunk in itertools.count():
+                if self._stop.is_set():
+                    return
                 with span("fastq.parse", chunk=chunk):
                     item = next(it, _END)
                 if item is _END:
                     break
-                if stop.is_set():
-                    return
-                q.put(("ok", item))
+                self._queue.put(("ok", item))
         except BaseException as e:  # noqa: BLE001 — replayed at consume
-            q.put(("exc", e))
+            self._queue.put(("exc", e))
             return
-        q.put(("end", _END))
+        finally:
+            # on this thread: a generator cannot be closed while it runs
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+        self._queue.put(("end", None))
 
-    t = _threading.Thread(target=worker, name=name, daemon=True)
-    t.start()
-    try:
-        while True:
-            kind, val = q.get()
-            if kind == "exc":
-                raise val
-            if kind == "end":
-                return
-            yield val
-    finally:
-        # abandoned mid-stream (consumer exception, early generator close,
-        # mismatched-R1/R2 raise): signal the worker and drain its queue so
-        # a blocked put() wakes, it observes `stop` and exits — otherwise
-        # the thread + its open FASTQ handle leak for the process lifetime
-        # (ADVICE r4)
-        stop.set()
-        while t.is_alive():
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._done:
+            raise StopIteration
+        kind, val = self._queue.get()
+        if kind == "ok":
+            return val
+        self._done = True
+        if kind == "exc":
+            raise val
+        raise StopIteration
+
+    def ready(self) -> bool:
+        """Whether the next item (or the end) is already in the queue."""
+        return not self._queue.empty()
+
+    def close(self) -> None:
+        """Stop the worker and wait for it to close the iterator.
+
+        Abandoned mid-stream (consumer exception, mismatched R1/R2 raise),
+        the worker may be blocked in ``put()``: drain the queue so it wakes,
+        observes ``stop`` and exits — otherwise the thread and its open
+        FASTQ handle leak for the process lifetime (ADVICE r4)."""
+        self._stop.set()
+        while self._thread.is_alive():
             try:
-                q.get_nowait()
-            except _queue.Empty:
-                t.join(0.05)
+                self._queue.get_nowait()
+            except queue.Empty:
+                self._thread.join(0.05)
 
 
 def _run_fast_loop(r1_chunks, r2_chunks, counters, multi, fetcher,
                    dispatcher, pending) -> None:
     mark = RECORDER.mark()
     in_flight: List = []
-    r1_chunks = _prefetch_iter(r1_chunks, "fastq-parse")
+    # both parse threads start here, before the first chunk is asked for
+    r1_chunks = _Prefetcher(r1_chunks, "fastq-parse")
     if r2_chunks is not None:
-        r2_chunks = _prefetch_iter(r2_chunks, "fastq-parse-r2")
-    for chunk in itertools.count():
-        with span("fastq.parse_wait", chunk=chunk, wait=True):
-            nxt = next(r1_chunks, None)
-            if nxt is not None and r2_chunks is not None:
-                # the wait for R2's chunk once R1's has come
-                with span("fastq.parse_wait.mate", wait=True):
-                    try:
-                        mate_mat, mate_lens = next(r2_chunks)
-                    except StopIteration:
-                        mate_mat, mate_lens = None, None
-        if nxt is None:
-            break
-        mat, lens = nxt
+        r2_chunks = _Prefetcher(r2_chunks, "fastq-parse-r2")
+    try:
+        for chunk in itertools.count():
+            with span("fastq.parse_wait", chunk=chunk, wait=True):
+                nxt = next(r1_chunks, None)
+                if nxt is not None and r2_chunks is not None:
+                    count("fastq.mate_ready", r2_chunks.ready())
+                    # the wait for R2's chunk once R1's has come
+                    with span("fastq.parse_wait.mate", wait=True):
+                        try:
+                            mate_mat, mate_lens = next(r2_chunks)
+                        except StopIteration:
+                            mate_mat, mate_lens = None, None
+            if nxt is None:
+                break
+            mat, lens = nxt
+            if r2_chunks is not None:
+                if mate_mat is None or mate_mat.shape[0] < mat.shape[0]:
+                    raise ValueError(
+                        "Error -- read and reverse read files do not have "
+                        "matching lengths: "
+                    )
+                count("fastq.pairs_in", mat.shape[0])
+                count("fastq.reads_in", 2 * mat.shape[0])
+            else:
+                mate_mat, mate_lens = None, None
+                count("fastq.reads_in", mat.shape[0])
+            if multi is not None:
+                # pipelined dispatch: dedupe + pack + upload run on the
+                # dispatcher thread, overlapping the previous chunk's
+                # host-side counting (see FastCounter.dispatch_async)
+                with span("fastq.submit", items=mat.shape[0], chunk=chunk):
+                    fut = dispatcher.submit(
+                        _dispatch_multi, multi, fetcher,
+                        mat, lens, mate_mat, mate_lens, chunk,
+                    )
+                handles = [fut] * len(counters)
+            else:
+                handles = [
+                    counter.dispatch_async(mat, lens, mate_mat, mate_lens,
+                                           chunk=chunk)
+                    for counter in counters
+                ]
+            in_flight.append((chunk, list(zip(counters, handles))))
+            if len(in_flight) >= _DEPTH:
+                drained, batch = in_flight.pop(0)
+                _drain_pending(batch, multi, chunk=drained)
+    finally:
+        r1_chunks.close()
         if r2_chunks is not None:
-            if mate_mat is None or mate_mat.shape[0] < mat.shape[0]:
-                raise ValueError(
-                    "Error -- read and reverse read files do not have "
-                    "matching lengths: "
-                )
-            count("fastq.pairs_in", mat.shape[0])
-            count("fastq.reads_in", 2 * mat.shape[0])
-        else:
-            mate_mat, mate_lens = None, None
-            count("fastq.reads_in", mat.shape[0])
-        if multi is not None:
-            # pipelined dispatch: dedupe + pack + upload run on the
-            # dispatcher thread, overlapping the previous chunk's
-            # host-side counting (see FastCounter.dispatch_async)
-            with span("fastq.submit", items=mat.shape[0], chunk=chunk):
-                fut = dispatcher.submit(
-                    _dispatch_multi, multi, fetcher,
-                    mat, lens, mate_mat, mate_lens, chunk,
-                )
-            handles = [fut] * len(counters)
-        else:
-            handles = [
-                counter.dispatch_async(mat, lens, mate_mat, mate_lens,
-                                       chunk=chunk)
-                for counter in counters
-            ]
-        in_flight.append((chunk, list(zip(counters, handles))))
-        if len(in_flight) >= _DEPTH:
-            drained, batch = in_flight.pop(0)
-            _drain_pending(batch, multi, chunk=drained)
+            r2_chunks.close()
     while in_flight:
         drained, batch = in_flight.pop(0)
         _drain_pending(batch, multi, chunk=drained)

@@ -11,14 +11,18 @@ leaves at their defaults turned on (``require_valid_pair``,
 check drops every FR pair: its mates hit a row and the reverse complement
 of a row, whose eq classes differ).  A traced pass counts the pairs and
 the reads of both files, opens the pair's spans and parses each file on a
-thread of its own.
+thread of its own.  Both parse threads start with the pass, before the
+loop asks for a chunk, and stop, closing their files, when the loop is
+abandoned.
 """
 
 import contextlib
 import io
 import json
 import os
+import threading
 
+import numpy as np
 import pytest
 
 from nimble_tpu_torch.utils.metrics import RECORDER
@@ -150,6 +154,7 @@ def test_a_traced_pass_counts_pairs_and_the_reads_of_both_files(
     assert c["fastq.pairs_both"] + c["fastq.pairs_one_mate"] <= PAIRS
     assert c.get("fastq.pairs_invalid", 0) == 0  # the published filters
     assert c["fastq.rows_launched"] <= c["fastq.reads_in"]
+    assert 0 <= c.get("fastq.mate_ready", 0) <= -(-PAIRS // CHUNK)
     names = {s.name for s in RECORDER.spans}
     assert {"fastq.parse_wait.mate", "fastq.stack_pair"} <= names
     mate_waits = [s for s in RECORDER.spans
@@ -160,6 +165,18 @@ def test_a_traced_pass_counts_pairs_and_the_reads_of_both_files(
             if s.name == "fastq.parse"} == {"fastq-parse", "fastq-parse-r2"}
     stacks = [s for s in RECORDER.spans if s.name == "fastq.stack_pair"]
     assert sum(s.items for s in stacks) == c["fastq.rows_launched"]
+
+
+def test_a_single_end_traced_pass_counts_no_mate_ready(drawn, tmp_path):
+    inputs = drawn(SEEDS[0])
+    _process(dict(inputs, inputs=inputs["inputs"][:1]), inputs["library"],
+             [str(tmp_path / "out.tsv")], traced=True)
+    c = RECORDER.counters
+    assert c["fastq.reads_in"] == PAIRS
+    assert c.get("fastq.mate_ready", 0) == c.get("fastq.pairs_in", 0) == 0
+    assert {s.thread_name for s in RECORDER.spans
+            if s.name == "fastq.parse"} == {"fastq-parse"}
+    assert not any(s.name == "fastq.parse_wait.mate" for s in RECORDER.spans)
 
 
 def test_the_pair_check_counts_the_pairs_it_drops(drawn, tmp_path):
@@ -184,3 +201,101 @@ def test_a_two_library_paired_job_stacks_the_pair_once(drawn, jobs,
     assert any(s.name == "fastq.stack_pair" for s in RECORDER.spans)
     assert RECORDER.counters["fastq.rows_stacked"] == RECORDER.counters[
         "fastq.rows_launched"]
+
+
+# --- the parse threads' start and stop -----------------------------------
+
+
+class _Chunks:
+    """A stub chunk iterator: ``n`` chunks of ``rows`` reads, ``first``
+    called before the first is handed out; it records its close."""
+
+    def __init__(self, n, first=None, rows=4):
+        self.n, self.first, self.rows = n, first, rows
+        self.given = 0
+        self.closed = False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if not self.given and self.first is not None:
+            self.first()
+        if self.given >= self.n:
+            raise StopIteration
+        self.given += 1
+        return (np.zeros((self.rows, 8), np.int8),
+                np.full(self.rows, 8, np.int32))
+
+    def close(self):
+        self.closed = True
+
+
+def _loop(r1, r2):
+    from nimble_tpu_torch.pipeline.fastq_pipeline import _run_fast_loop
+
+    _run_fast_loop(r1, r2, [], None, None, None, [])
+
+
+def _assert_parse_threads_stopped():
+    for t in threading.enumerate():
+        if t.name in ("fastq-parse", "fastq-parse-r2"):
+            t.join(2)
+            assert not t.is_alive(), t.name
+
+
+def test_both_parse_threads_start_before_the_first_chunk_is_handed_over():
+    """R1's first chunk comes only once R2's parse has begun: a loop that
+    asked for R2 after R1's first chunk had come would wait in vain."""
+    r2_started = threading.Event()
+
+    def r1_first():
+        if not r2_started.wait(5):
+            raise TimeoutError("R2's parse did not start beside R1's")
+
+    r1 = _Chunks(3, first=r1_first)
+    r2 = _Chunks(3, first=r2_started.set)
+    errors = []
+
+    def run():
+        try:
+            _loop(r1, r2)
+        except BaseException as e:  # noqa: BLE001 — checked below
+            errors.append(e)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(10)
+    assert not t.is_alive()
+    assert errors == []
+    assert r1.given == r2.given == 3
+    assert r1.closed and r2.closed
+    _assert_parse_threads_stopped()
+
+
+@pytest.mark.parametrize("fault", ["r1_raises", "r1_longer"])
+def test_an_abandoned_loop_stops_both_parse_threads(fault):
+    """R1's error, or R1 longer than R2, reaches the caller as it is; both
+    parse threads stop and close their iterators, R2's while it parses
+    ahead of a loop that will never ask for it."""
+    if fault == "r1_raises":
+        r2_parsing, r1_raised = threading.Event(), threading.Event()
+
+        def r1_first():
+            r2_parsing.wait(5)
+            r1_raised.set()
+            raise RuntimeError("R1 is unreadable")
+
+        def r2_first():
+            r2_parsing.set()
+            r1_raised.wait(5)
+
+        r1, r2 = _Chunks(3, first=r1_first), _Chunks(10**6, first=r2_first)
+        error, message = RuntimeError, "R1 is unreadable"
+    else:
+        r1, r2 = _Chunks(3), _Chunks(2)
+        error, message = ValueError, "do not have matching lengths"
+    with pytest.raises(error, match=message):
+        _loop(r1, r2)
+    _assert_parse_threads_stopped()
+    assert r1.closed and r2.closed

@@ -204,7 +204,8 @@ def test_build_seconds_is_a_view_of_the_kernel_spans():
 # --- the pipelines, traced ---------------------------------------------------
 
 # the end of a single-end pass's ``[fastq counts]`` line: no pair counted
-SINGLE_END_PAIRS = "pairs-in 0 pairs-both 0 pairs-one-mate 0 pairs-invalid 0"
+SINGLE_END_PAIRS = ("pairs-in 0 pairs-both 0 pairs-one-mate 0 pairs-invalid 0 "
+                    "mate-ready 0")
 
 
 @pytest.fixture(scope="module")
