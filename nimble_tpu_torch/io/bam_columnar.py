@@ -31,6 +31,9 @@ import numpy as np
 from nimble_tpu_torch.io.umi import READ_BLOCK_REPORT_SIZE
 from nimble_tpu_torch.utils.metrics import span
 
+# the SEQ length the 10x rule clips (`src/parse/bam.rs:258-268`)
+_CLIPPED_SEQ_LEN = 124
+
 # bytes-valued columns carried per record: metadata prefix + the metadata
 # fields the consumer needs + the grouping keys
 _COLS = ("meta", "meta1", "meta15", "rev2", "qn", "sk", "cb", "umi",
@@ -45,7 +48,8 @@ class EmittedBatch:
     per-record Python objects; ``group_off`` (int64, n_groups+1) delimits
     groups.  The output metadata block of record i is
     ``meta.get(i) + b"\\t" + skipb.get(i)``; ``skip_true`` is the parsed
-    SKIP column (True = the record is an unpaired dummy)."""
+    SKIP column (True = the record is an unpaired dummy); ``clipped`` marks
+    the records whose SEQ the 10x 124-base rule clipped."""
 
     meta: "_Col"         # metadata prefix (36 tab-joined fields)
     skipb: "_Col"        # resolved SKIP column bytes (b"TRUE"/b"FALSE")
@@ -56,6 +60,7 @@ class EmittedBatch:
     qn: "_Col"
     seq: "_Col"          # 2-bit codes as int8, flat ragged layout
     group_off: np.ndarray
+    clipped: np.ndarray
 
     def __len__(self) -> int:
         return len(self.skip_true)
@@ -88,6 +93,7 @@ class EmittedBatch:
             cut(self.meta), cut(self.skipb), self.skip_true[start:end],
             cut(self.qual), cut(self.rev2), cut(self.seq15), cut(self.qn),
             cut(self.seq), self.group_off[g_lo : g_hi + 1] - start,
+            self.clipped[start:end],
         )
 
 
@@ -226,6 +232,7 @@ class _Carry:
         self.cols: Dict[str, _Col] = {c: _Col.empty() for c in _COLS}
         self.seq = _Col.empty()          # int8 codes ride the same layout
         self.oflags = np.zeros(0, dtype=np.uint8)
+        self.clipped = np.zeros(0, dtype=bool)
 
     def __len__(self):
         return len(self.oflags)
@@ -235,12 +242,14 @@ class _Carry:
             self.cols[c] = self.cols[c].concat(other.cols[c])
         self.seq = self.seq.concat(other.seq)
         self.oflags = np.concatenate([self.oflags, other.oflags])
+        self.clipped = np.concatenate([self.clipped, other.clipped])
 
     def drop_front(self, n: int) -> None:
         for c in _COLS:
             self.cols[c] = self.cols[c].drop_front(n)
         self.seq = self.seq.drop_front(n)
         self.oflags = self.oflags[n:]
+        self.clipped = self.clipped[n:]
 
 
 class _Pend:
@@ -255,6 +264,7 @@ class _Pend:
     def __init__(self):
         self.cols: Dict[str, _Col] = {c: _Col.empty() for c in self.NAMES}
         self.skip_true = np.zeros(0, dtype=bool)
+        self.clipped = np.zeros(0, dtype=bool)
         self.starts: List[int] = []  # absolute group starts in pending
         # emission pieces accumulate in lists and concatenate ONCE per
         # batch flush (_flush_tails): the old per-emission pairwise
@@ -262,13 +272,14 @@ class _Pend:
         # run — O(batch x runs) bytes of producer-thread memcpy
         self._tails: Dict[str, List[_Col]] = {c: [] for c in self.NAMES}
         self._skip_tails: List[np.ndarray] = []
+        self._clip_tails: List[np.ndarray] = []
         self._n = 0
 
     def __len__(self) -> int:
         return self._n
 
     def add_taken(self, cols: Dict[str, _Col], skip_true: np.ndarray,
-                  group_starts) -> None:
+                  clipped: np.ndarray, group_starts) -> None:
         """Append already row-gathered columns + their group starts."""
         base = self._n
         for s in group_starts:
@@ -277,6 +288,7 @@ class _Pend:
             for c in self.NAMES:
                 self._tails[c].append(cols[c])
             self._skip_tails.append(skip_true)
+            self._clip_tails.append(clipped)
             self._n += len(skip_true)
 
     def _flush_tails(self) -> None:
@@ -290,6 +302,8 @@ class _Pend:
                 [self.skip_true] + self._skip_tails
             )
             self._skip_tails.clear()
+            self.clipped = np.concatenate([self.clipped] + self._clip_tails)
+            self._clip_tails.clear()
 
     def make_batch(self, end: int, cut: int) -> EmittedBatch:
         self._flush_tails()
@@ -299,6 +313,7 @@ class _Pend:
             c["qual"].head(end), c["rev2"].head(end), c["seq15"].head(end),
             c["qn"].head(end), c["seq"].head(end),
             np.asarray(self.starts[:cut] + [end], dtype=np.int64),
+            self.clipped[:end],
         )
 
     def emit_ready(self, final: bool,
@@ -313,6 +328,7 @@ class _Pend:
             for c in self.NAMES:
                 self.cols[c] = self.cols[c].drop_front(end)
             self.skip_true = self.skip_true[end:]
+            self.clipped = self.clipped[end:]
             self._n = len(self.skip_true)
             rem = [s - end for s in self.starts[cut:]]
             self.starts.clear()
@@ -328,6 +344,7 @@ class _Pend:
             for c in self.NAMES:
                 self.cols[c] = self.cols[c].head(end)
             self.skip_true = self.skip_true[:end]
+            self.clipped = self.clipped[:end]
             self._n = len(self.skip_true)
 
 
@@ -472,6 +489,9 @@ class ColumnarGroupStream:
             s_flat[: s_offs[count]].view(np.uint8),
         ).filter(keep)
         out.oflags = oflags[keep]
+        # the 10x rule clips a SEQ of exactly 124 bases (``nimble_bam_meta``)
+        raw_lens = np.diff(seq[0][: count + 1])
+        out.clipped = (raw_lens == _CLIPPED_SEQ_LEN)[keep]
         return out
 
     # ----------------- Python fallback (irregular runs) ----------------
@@ -617,7 +637,7 @@ class ColumnarGroupStream:
         idx = np.asarray(emit_idx, dtype=np.int64)
         k = len(idx)
         taken: Dict[str, _Col] = {}
-        skip_true = np.zeros(0, dtype=bool)
+        skip_true = clipped = np.zeros(0, dtype=bool)
         if k:
             codes = np.asarray(emit_skip, dtype=np.int8)
             if (codes == 2).all():
@@ -645,7 +665,8 @@ class ColumnarGroupStream:
                 taken[name] = c.cols[src].take(idx)
             taken["skipb"] = skipb
             taken["seq"] = c.seq.take(idx)
-        pend.add_taken(taken, skip_true, group_starts)
+            clipped = c.clipped[idx]
+        pend.add_taken(taken, skip_true, clipped, group_starts)
         self._count_progress(k)
 
     def _end_batches(self, pend: _Pend, target_records: int,

@@ -385,6 +385,49 @@ def _pack_bytes_col(items: List[bytes]):
 _REASONS_COL = _pack_bytes_col(_REASON_B)
 
 
+def _orient_batch(go: np.ndarray, w: _LibraryWorker, cid: np.ndarray,
+                  require_pair: bool) -> None:
+    """Run the orientation memo over every distinct admitted (content1,
+    content2) combination of a batch's pairs (caller holds ``w.lock``), so
+    that the batch's rows read only memoized outcomes.  Span
+    ``bam.orient`` (``items`` the distinct combos); counter
+    ``bam.pairs_oriented_out``: the admitted pairs whose outcome is a
+    triage, each pair counted."""
+    N = len(w.content_eq)
+    starts = go[:-1]
+    cnts = (go[1:] - starts) // 2
+    total_pairs = int(cnts.sum())
+    if not total_pairs:
+        return
+    # the pairs' first records (vectorized pair index build)
+    rep_start = np.repeat(starts, cnts)
+    csum = np.cumsum(cnts) - cnts
+    inner = np.arange(total_pairs, dtype=np.int64) - np.repeat(csum, cnts)
+    i1 = rep_start + 2 * inner
+    c1 = cid[i1]
+    c2 = cid[i1 + 1]
+    admitted = (c1 >= 0) | (c2 >= 0)
+    if require_pair:
+        scid_arr = np.asarray(w.scid, dtype=np.int64)
+        if not len(scid_arr):
+            # nothing interned yet (no read aligned); the index-0 pad is
+            # never semantically used because c1>=0 gates the comparison
+            scid_arr = np.zeros(1, dtype=np.int64)
+        g1 = np.where(c1 >= 0, c1, 0)
+        g2 = np.where(c2 >= 0, c2, 0)
+        admitted &= (
+            (c1 >= 0) & (c2 >= 0)
+            & ((c1 == c2) | (scid_arr[g1] == scid_arr[g2]))
+        )
+    keys, per_key = np.unique(((c1 + 1) * (N + 1) + (c2 + 1))[admitted],
+                              return_counts=True)
+    with span("bam.orient", items=len(keys)):
+        triaged = np.fromiter(
+            (w.orient(int(k // (N + 1)) - 1, int(k % (N + 1)) - 1)[0] == "t"
+             for k in keys), dtype=bool, count=len(keys))
+    count("bam.pairs_oriented_out", int(per_key[triaged].sum()))
+
+
 def _native_rows_args(batch, w: _LibraryWorker, cid, s_arr, code_arr, rev,
                       dec_flat, W, dlens, require_pair):
     """Argument tuple for native.bam_rows (caller holds ``w.lock``).
@@ -401,34 +444,7 @@ def _native_rows_args(batch, w: _LibraryWorker, cid, s_arr, code_arr, rev,
     go = np.ascontiguousarray(batch.group_off, dtype=np.int64)
     n_groups = batch.n_groups
     N = len(w.content_eq)
-
-    # distinct admitted combos -> orient (vectorized pair index build)
-    starts = go[:-1]
-    cnts = (go[1:] - starts) // 2
-    total_pairs = int(cnts.sum())
-    if total_pairs:
-        rep_start = np.repeat(starts, cnts)
-        csum = np.cumsum(cnts) - cnts
-        inner = np.arange(total_pairs, dtype=np.int64) - np.repeat(csum, cnts)
-        i1 = rep_start + 2 * inner
-        c1 = cid[i1]
-        c2 = cid[i1 + 1]
-        admitted = (c1 >= 0) | (c2 >= 0)
-        if require_pair:
-            scid_arr = np.asarray(w.scid, dtype=np.int64)
-            if not len(scid_arr):
-                # nothing interned yet (no read aligned); the index-0 pad is
-                # never semantically used because c1>=0 gates the comparison
-                scid_arr = np.zeros(1, dtype=np.int64)
-            g1 = np.where(c1 >= 0, c1, 0)
-            g2 = np.where(c2 >= 0, c2, 0)
-            admitted &= (
-                (c1 >= 0) & (c2 >= 0)
-                & ((c1 == c2) | (scid_arr[g1] == scid_arr[g2]))
-            )
-        keys = ((c1 + 1) * (N + 1) + (c2 + 1))[admitted]
-        for key in np.unique(keys):
-            w.orient(int(key // (N + 1)) - 1, int(key % (N + 1)) - 1)
+    _orient_batch(go, w, cid, require_pair)
 
     # combo tables from the (cross-batch) memo; keys use THIS N
     combo_keys = np.empty(len(w.orient_memo), dtype=np.int64)
@@ -495,7 +511,7 @@ def _finish_batch(ctx, workers: List[_LibraryWorker], collected=None):
 
     # ---- per-group packaging ----
     out_rows: List[List[bytes]] = [[] for _ in workers]
-    go = batch.group_off
+    go = np.ascontiguousarray(batch.group_off, dtype=np.int64)
     group_bounds = [
         (int(go[gi]), int(go[gi + 1])) for gi in range(batch.n_groups)
     ]
@@ -533,6 +549,8 @@ def _finish_batch(ctx, workers: List[_LibraryWorker], collected=None):
             ).astype(np.int64)
             c_sorted = w.content_sorted
 
+            if not native.available():
+                _orient_batch(go, w, cid, require_pair)
             native_args = _native_rows_args(
                 batch, w, cid, s_arr, code_arr, rev, dec_flat, W, dlens,
                 require_pair,
@@ -697,7 +715,8 @@ def process_fast(
 # a traced pass's counters, printed as its ``[bam_fast counts]`` line
 COUNTERS = ("bam.records_in", "bam.rows_launched", "bam.rescued",
             "bam.rows_written", "bam.rows_stacked", "entropy.fallback_rows",
-            "bam.rows_decoded")
+            "bam.rows_decoded", "bam.records_clipped",
+            "bam.pairs_oriented_out")
 
 
 def _process_fast(input_files, engines, references, aligner_configs,
@@ -788,6 +807,11 @@ def _process_fast(input_files, engines, references, aligner_configs,
                 validate_gzip(p)
         print("Logging thread terminating.")
 
+    def put(seq: int, batch) -> None:
+        # the records of the batch whose SEQ the 10x 124-base rule clipped
+        count("bam.records_clipped", int(np.count_nonzero(batch.clipped)))
+        work_queue.put((seq, batch))
+
     def producer() -> None:
         print("Spawning reader thread.")
         with span("bam.open"):  # the file's header, read and inflated
@@ -809,7 +833,7 @@ def _process_fast(input_files, engines, references, aligner_configs,
                     break
                 total_groups += b.n_groups
                 if prev is not None:
-                    work_queue.put((seq, prev))
+                    put(seq, prev)
                     seq += 1
                 prev = b
             if RECORDER.on:
@@ -825,7 +849,7 @@ def _process_fast(input_files, engines, references, aligner_configs,
                         and stream.final_open_group_pending):
                     prev = prev.drop_last_group()
                 if len(prev):
-                    work_queue.put((seq, prev))
+                    put(seq, prev)
                     seq += 1
             print("Finished reading UMIs from input file.")
 

@@ -573,7 +573,9 @@ def test_bam_columnar_stream_matches(tmp_path, monkeypatch, kind,
     kind the producer's rules were written for: every batch's columns,
     group offsets, the stdout and stderr prints, the exception raised and
     the final-group flag.  The JAX package's stream runs its default, one
-    scan-ahead thread."""
+    scan-ahead thread.  The port's batches also mark the records whose SEQ
+    the 10x 124-base rule clipped (``clipped``, which the JAX package's
+    lack): every record of the padded stream, no other."""
     import contextlib
     import io
 
@@ -584,6 +586,8 @@ def test_bam_columnar_stream_matches(tmp_path, monkeypatch, kind,
         path = str(tmp_path / f"{kind}.bam")
         _STREAM_KINDS[kind](path)
 
+    clipped = []  # the port's (marks, clipped lengths) a batch
+
     def run(side):
         out, err = io.StringIO(), io.StringIO()
         cols, exc = [], None
@@ -592,12 +596,15 @@ def test_bam_columnar_stream_matches(tmp_path, monkeypatch, kind,
                 path, paired)
             try:
                 for b in stream.batches(batch_records):
+                    if side is PORT:
+                        clipped.append((b.clipped, b.seq.lens()))
                     cols.append({
                         f.name: (getattr(b, f.name).offs,
                                  getattr(b, f.name).flat)
                         if hasattr(getattr(b, f.name), "offs")
                         else getattr(b, f.name)
-                        for f in dataclasses.fields(b)})
+                        for f in dataclasses.fields(b)
+                        if f.name != "clipped"})
             except Exception as e:  # noqa: BLE001 — compared below
                 exc = (type(e).__name__, str(e))
         return (cols, out.getvalue(), err.getvalue(), exc,
@@ -611,6 +618,11 @@ def test_bam_columnar_stream_matches(tmp_path, monkeypatch, kind,
         assert exc is None and len(cols) >= 1
     if kind == "irregular_qnames":
         assert "Warning: Unpaired qname!" in out
+    assert len(clipped) == len(cols)
+    for marks, lens in clipped:
+        assert marks.dtype == bool and len(marks) == len(lens)
+        assert marks.all() if kind == "clip_124" else not marks.any()
+        assert (lens[marks] == 124 - 13).all()
 
 
 def test_bam_columnar_stream_close_stops_its_scan_thread(tmp_path):

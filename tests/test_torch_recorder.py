@@ -396,6 +396,56 @@ def test_a_traced_bam_pass_waits_for_a_batch_outside_its_finish(
             and by_id[s.parent].name == "bam.queue_wait"] == []
 
 
+def test_a_traced_5p_bam_pass_counts_clipped_records_and_oriented_out_pairs(
+        traced, tmp_path, capsys):
+    """A 10x 5′ BAM (124-base R1s, 150-base R2s) under the ``fiveprime``
+    filter: the ``[bam_fast counts]`` line ends with ``records-clipped``,
+    the R1 records in, and ``pairs-oriented-out``; each batch opens
+    ``bam.orient`` once, inside ``bam.finish`` on the consumer, ``items``
+    its distinct combinations."""
+    from nimble_tpu_torch.config import LibraryChemistry
+    from nimble_tpu_torch.index.build import build_index
+    from nimble_tpu_torch.library import (
+        get_reference_sequence_data,
+        load_reference_library,
+    )
+    from nimble_tpu_torch.models.aligner import TorchAlignEngine
+    from nimble_tpu_torch.pipeline.bam_fast import process_fast
+    from portbench import fiveprime, generate, spec
+
+    cell = spec.load_cell("basic_fiveprime_bam_tenx5p", spec.benchmark())
+    lib = generate.library(cell["config_file"])
+    recs = fiveprime.records(lib, cell["traffic_file"], 400, seed=6)
+    bam, library = str(tmp_path / "r.bam"), str(tmp_path / "lib.json")
+    fiveprime.write_bam(bam, recs)
+    generate.write_library(library, lib)
+    cfg, ref = load_reference_library(library, LibraryChemistry.FIVE_PRIME)
+    engine = TorchAlignEngine(build_index(get_reference_sequence_data(ref)[0]),
+                              cfg, device="cpu")
+    RECORDER.clear()
+    with contextlib.redirect_stdout(io.StringIO()):
+        process_fast([bam], [engine], [ref], [cfg],
+                     [str(tmp_path / "out.tsv.gz")], 2, False,
+                     batch_records=512)
+    err = capsys.readouterr().err
+    counts = RECORDER.counters
+    records = 8 * 400 - 8  # the last group dropped
+    assert counts["bam.records_in"] == records
+    assert counts["bam.records_clipped"] == records // 2
+    out = counts["bam.pairs_oriented_out"]
+    assert 0 < out < records // 2
+    assert err.rstrip("\n").endswith(
+        f"records-clipped {records // 2} pairs-oriented-out {out}")
+    by_id = {s.id: s for s in RECORDER.spans}
+    orients = [s for s in RECORDER.spans if s.name == "bam.orient"]
+    finishes = [s for s in RECORDER.spans if s.name == "bam.finish"]
+    assert len(orients) == len(finishes) >= 2
+    for s in orients:
+        assert by_id[s.parent].name == "bam.finish"
+        assert s.thread_name == "bam-consumer-0"
+    assert 0 < sum(s.items for s in orients)
+
+
 def _entropy_spans(name, parent):
     """The spans ``name``, each inside a span ``parent`` on its thread."""
     by_id = {s.id: s for s in RECORDER.spans}
@@ -460,7 +510,9 @@ def test_a_traced_bam_pass_spans_the_entropy_gate_of_each_launch(
     assert sum(s.items for s in spans) == RECORDER.counters[
         "bam.rows_launched"] > 0
     assert RECORDER.counters.get("entropy.fallback_rows", 0) == 0
-    assert "rows-stacked 0 fallback-rows 0 rows-decoded 0\n" in err
+    out = RECORDER.counters.get("bam.pairs_oriented_out", 0)
+    assert (f"rows-stacked 0 fallback-rows 0 rows-decoded 0 records-clipped 0 "
+            f"pairs-oriented-out {out}\n") in err
 
 
 @pytest.mark.parametrize("multiple", [False, True])
@@ -514,7 +566,8 @@ def test_a_traced_stacked_bam_pass_gates_entropy_once_a_launch(
     assert (decoded > 0) == multiple
     assert decoded <= counts["bam.rows_launched"]
     assert (f"rows-stacked {counts['bam.rows_stacked']} fallback-rows 0 "
-            f"rows-decoded {decoded}\n") in err
+            f"rows-decoded {decoded} records-clipped 0 pairs-oriented-out "
+            f"{counts.get('bam.pairs_oriented_out', 0)}\n") in err
 
 
 def test_the_pass_annotations_tie_the_recorder_to_a_profiler_trace(
